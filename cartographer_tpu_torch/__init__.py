@@ -1,0 +1,17 @@
+"""cartographer_tpu_torch: the PyTorch/CUDA port of cartographer_tpu.
+
+The JAX package `cartographer_tpu` is the reference; this package computes
+the same functions with PyTorch tensors, and its device kernels are
+hand-written CUDA for Hopper (`csrc/`, built at first use by
+`kernels/_build.py`). It imports neither JAX nor any module of the JAX
+package: the pure-Python modules it needs are copied under the same
+relative paths.
+
+Ported so far: the chunked 2D local-SLAM frontend
+(`mapping/chunked_frontend_2d.ChunkedLocalTrajectoryBuilder2D` over
+`ops/frontend_2d.run_chunk`) with online correlative matching, no IMU and
+no odometry. Entry points run on CUDA unless the caller passes
+`device="cpu"`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,101 @@
+"""Build `csrc/<name>.cu` with nvcc into a shared library with a plain C
+interface, and load it with ctypes.
+
+Each source becomes `.build/<name>-<hash>.so` inside this package, where
+the hash covers the source, the headers beside it and the compiler flags;
+an unchanged source is never rebuilt. The build runs at first use (never
+at import) and a failed build raises with nvcc's output.
+`build_all()` starts one nvcc per source at once, for callers that want
+every kernel ready before they start timing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / ".build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Names of every kernel source under csrc/."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (process, tmp path, final path),
+    or None when the library is already built."""
+    out = _library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> None:
+    """Build every source under csrc/, one nvcc per source, all at once."""
+    with _lock:
+        started = {n: _start(n) for n in sources()}
+        for name, s in started.items():
+            if s is not None:
+                _finish(name, s)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of csrc/<name>.cu, building it if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            started = _start(name)
+            if started is not None:
+                _finish(name, started)
+            lib = ctypes.CDLL(str(_library_path(name)))
+            _loaded[name] = lib
+        return lib

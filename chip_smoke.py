@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (cartographer_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line; any failure raises and the script
+exits non-zero:
+
+1. device: the card's name and power limit (nvidia-smi).
+2. build: every kernel under cartographer_tpu_torch/csrc, one nvcc per
+   source, all started together.
+3. kernel: each kernel against its plain PyTorch version on the card at
+   the main path's shapes and at edge shapes; device times from CUDA
+   graphs of 20 calls, and single-call times with launch latency.
+4. slice: the chunked 2D local-SLAM frontend
+   (ChunkedLocalTrajectoryBuilder2D on cuda) over 300 scans of the
+   synthetic loop world, with online correlative matching on: kernel
+   launch counts from that run only, the error against ground truth,
+   every scan of the first two chunks rerun on the CPU from the GPU's
+   state before it (identical flags, poses within 1e-3), and one chunk
+   under torch.profiler for the device's busy share.
+5. kernels: one line with every kernel's numbers.
+
+The last line is {"ok": true, "device": {...}}. Without CUDA, or without
+the package beside it, the script fails before printing a result. It
+imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
+# tensor cores, for the kernels' lower bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def call_time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+    """Median over `reps` single calls, each between two CUDA events: the
+    device time of one call from the host, launch latency included."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_time_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call: `calls` calls captured in a CUDA graph,
+    replayed `reps` times between CUDA events (median), divided by
+    `calls`. Host launch latency is out of the measurement."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def window_sums_case(rng, h, w, a, n, num_linear, outside, device):
+    """prob f32 [h, w], ix/iy i32 [a, n] reaching `outside` cells past the
+    grid, 20% of the points masked."""
+    import torch
+
+    prob = rng.uniform(0.1, 0.9, (h, w)).astype(np.float32)
+    ix = rng.integers(-outside, w + outside, (a, n)).astype(np.int32)
+    iy = rng.integers(-outside, h + outside, (a, n)).astype(np.int32)
+    mask = rng.uniform(size=n) > 0.2
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return t(prob), t(ix), t(iy), t(mask), num_linear
+
+
+def kernel_phase(device):
+    """correlative_window against its plain version at three shapes."""
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+
+    rng = np.random.default_rng(0)
+    cases = {
+        # The slice's shape: grid 1024, a_cap 84 at max_range 12 m, the
+        # 512-point matching cloud, L = 2.
+        "main": dict(h=1024, w=1024, a=169, n=512, num_linear=2, outside=3),
+        "edge": dict(h=37, w=300, a=7, n=100, num_linear=5, outside=6),
+        "l0": dict(h=1024, w=1024, a=169, n=512, num_linear=0, outside=3),
+    }
+    results = {}
+    for name, shape in cases.items():
+        args = window_sums_case(rng, device=device, **shape)
+        got = cw.window_sums(*args)
+        want = cw.window_sums_plain(*args)
+        import torch
+
+        torch.cuda.synchronize()
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_allclose(got_np, want_np, rtol=1e-5, atol=0)
+        max_abs = float(np.max(np.abs(got_np - want_np)))
+        max_rel = float(np.max(np.abs(got_np - want_np) / np.abs(want_np)))
+        kernel_ms = device_time_ms(lambda: cw.window_sums(*args))
+        plain_ms = device_time_ms(lambda: cw.window_sums_plain(*args))
+        kernel_call_ms = call_time_ms(lambda: cw.window_sums(*args))
+        plain_call_ms = call_time_ms(lambda: cw.window_sums_plain(*args))
+        h, w, a, n, d = (
+            shape["h"], shape["w"], shape["a"], shape["n"],
+            2 * shape["num_linear"] + 1,
+        )
+        n_valid = int(args[3].sum().item())
+        nbytes = h * w * 4 + 2 * a * n * 4 + n + a * d * d * 4
+        ops = a * d * d * n_valid
+        bound_s = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        r = {
+            "phase": "kernel", "name": "correlative_window", "case": name,
+            **shape, "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
+            "bytes": nbytes, "ops": ops, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / F32_OPS_PER_S else "operations",
+        }
+        emit(r)
+        results[name] = r
+    return results
+
+
+def loop_world_options():
+    from cartographer_tpu_torch.common.config import (
+        GridOptions2D,
+        SubmapsOptions2D,
+        TrajectoryBuilder2DOptions,
+    )
+
+    # The cartographer_ros no-IMU 2D setting with online correlative
+    # matching (revo_lds.lua); the 1024 grid at 5 cm holds the hall.
+    return TrajectoryBuilder2DOptions(
+        use_imu_data=False,
+        max_range=12.0,
+        use_online_correlative_scan_matching=True,
+        submaps=SubmapsOptions2D(
+            num_range_data=40,
+            grid_options_2d=GridOptions2D(resolution=0.05, grid_size=1024),
+        ),
+    )
+
+
+def run_builder(measurements, device, chunk):
+    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
+        ChunkedLocalTrajectoryBuilder2D,
+    )
+
+    builder = ChunkedLocalTrajectoryBuilder2D(
+        loop_world_options(), {"range"}, chunk_size=chunk, device=device
+    )
+    results = []
+    for m in measurements:
+        results.extend(builder.add_range_data("range", m))
+    results.extend(builder.flush())
+    return results
+
+
+FLAGS = ("matched", "inserted", "created", "popped", "finished", "num_filtered")
+
+
+def per_scan_parity(measurements):
+    """Drive the frontend on cuda one scan per chunk and rerun each scan
+    on the CPU from a copy of the GPU state before it, with the same
+    packed input. Flags must be identical and poses within 1e-3 m and
+    1e-3 rad."""
+    import torch
+
+    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
+        ChunkedLocalTrajectoryBuilder2D,
+    )
+    from cartographer_tpu_torch.ops import frontend_2d as tf
+
+    n_sc = len(tf.SCALARS)
+    S = tf.SIDX
+    worst = {"m": 0.0, "rad": 0.0, "known": 1.0}
+    steps = []
+    run = tf.run_chunk
+
+    def scalars(packed):
+        return packed.cpu().numpy()[: n_sc * 4].view(np.float32).reshape(1, n_sc)[0]
+
+    def checked(cfg, state, shift, buf):
+        out = run(cfg, state, shift, buf)
+        cpu_state = tf.state_from_numpy(tf.state_to_numpy(state), device="cpu")
+        cpu_out = run(cfg, cpu_state, shift, buf.cpu())
+        g, c = scalars(out[3]), scalars(cpu_out[3])
+        for k in FLAGS:
+            if g[S[k]] != c[S[k]]:
+                raise AssertionError(
+                    f"scan {len(steps)}: GPU/CPU {k} differ: {g[S[k]]} vs {c[S[k]]}"
+                )
+        d_m = float(np.max(np.abs(g[[S["pose_x"], S["pose_y"]]] - c[[S["pose_x"], S["pose_y"]]])))
+        d_rad = float(abs(g[S["pose_yaw"]] - c[S["pose_yaw"]]))
+        if d_m > 1e-3 or d_rad > 1e-3:
+            raise AssertionError(
+                f"scan {len(steps)}: GPU/CPU pose differ by {d_m:.2e} m, {d_rad:.2e} rad"
+            )
+        known = float(
+            (out[0].grids_known.cpu() == cpu_out[0].grids_known).float().mean()
+        )
+        worst["m"] = max(worst["m"], d_m)
+        worst["rad"] = max(worst["rad"], d_rad)
+        worst["known"] = min(worst["known"], known)
+        steps.append(bool(g[S["inserted"]] > 0.5))
+        return out
+
+    builder = ChunkedLocalTrajectoryBuilder2D(
+        loop_world_options(), {"range"}, chunk_size=1, device="cuda"
+    )
+    tf.run_chunk = checked
+    try:
+        for m in measurements:
+            builder.add_range_data("range", m)
+        builder.flush()
+    finally:
+        tf.run_chunk = run
+    torch.cuda.synchronize()
+    if worst["known"] < 0.999:
+        raise AssertionError(f"GPU/CPU known grids agree on {worst['known']:.5f} only")
+    return {
+        "cpu_parity_scans": len(steps),
+        "cpu_parity_inserted": sum(steps),
+        "cpu_parity_max_m": worst["m"],
+        "cpu_parity_max_rad": worst["rad"],
+        "cpu_parity_min_known_agreement": worst["known"],
+    }
+
+
+def profile_phase(measurements, chunk):
+    """One warm chunk under torch.profiler: the device's busy share (sum
+    of kernel times over wall time), kernels per scan, and the kernels
+    that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
+        ChunkedLocalTrajectoryBuilder2D,
+    )
+
+    builder = ChunkedLocalTrajectoryBuilder2D(
+        loop_world_options(), {"range"}, chunk_size=chunk, device="cuda"
+    )
+    for m in measurements[:chunk]:
+        builder.add_range_data("range", m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for m in measurements[chunk : 2 * chunk]:
+            builder.add_range_data("range", m)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "scans": chunk,
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3 if kernels else None,
+        "device_idle_share": 1.0 - busy_us / wall_us if kernels else None,
+        "kernels_per_scan": len(kernels) / chunk,
+        "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
+        "correlative_window_ms": sum(
+            us for name, us in by_name.items() if "window_sums" in name
+        ) / 1e3,
+    }
+
+
+def slice_phase(device, smi):
+    import torch
+
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.testing.synthetic import (
+        FAKE_START_TIME,
+        generate_loop_world,
+    )
+    from cartographer_tpu_torch.transform import rigid3
+
+    time_step, chunk = 0.05, 32
+    measurements, true_poses = generate_loop_world(
+        laps=0.25, time_step=time_step, num_beams=1024, max_range=12.0
+    )
+    num_scans = len(measurements)
+
+    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
+        ChunkedLocalTrajectoryBuilder2D,
+    )
+
+    builder = ChunkedLocalTrajectoryBuilder2D(
+        loop_world_options(), {"range"}, chunk_size=chunk, device=device
+    )
+    cw.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    t_first = None  # end of the first chunk (CUDA and allocator warm-up)
+    for m in measurements:
+        results.extend(builder.add_range_data("range", m))
+        if t_first is None and results:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter()
+    results.extend(builder.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady_wall = time.perf_counter() - t_first
+    launches = cw.LAUNCHES
+
+    if not results:
+        raise AssertionError("no scan was matched")
+    if launches < len(results):
+        raise AssertionError(
+            f"correlative_window launched {launches} times for "
+            f"{len(results)} matched scans"
+        )
+    # (b) Local-SLAM error against ground truth, relative to the first node.
+    k0 = int(round((results[0].time - FAKE_START_TIME) / time_step))
+    est0_inv = rigid3.inverse(results[0].local_pose)
+    true0_inv = rigid3.inverse(true_poses[k0])
+    errs = []
+    for r in results:
+        k = int(round((r.time - FAKE_START_TIME) / time_step))
+        est = rigid3.compose(est0_inv, r.local_pose)
+        true = rigid3.compose(true0_inv, true_poses[k])
+        errs.append(float(np.linalg.norm(est[:2] - true[:2])))
+    max_err = max(errs)
+    if not np.all(np.isfinite([r.local_pose for r in results])):
+        raise AssertionError("non-finite pose")
+    if max_err > 0.3:
+        raise AssertionError(f"max position error {max_err:.3f} m > 0.3 m")
+
+    # (c) Every scan of the first two chunks again, on the CPU, from the
+    # GPU's state before it and the same packed input.
+    head = measurements[: 2 * chunk]
+    step = per_scan_parity(head)
+    # For the record: the CPU free-running over the same two chunks. The
+    # frontend amplifies ulp-level differences (see PERF.md), so this
+    # is reported, not asserted.
+    cpu = {r.time: r for r in run_builder(head, "cpu", chunk)}
+    gpu = {r.time: r for r in results if r.time <= head[-1].time}
+    both = sorted(set(gpu) & set(cpu))
+    free = {
+        "free_run_matched": [len(gpu), len(cpu)],
+        "free_run_insert_mismatches": sum(
+            (gpu[t].insertion_result is None) != (cpu[t].insertion_result is None)
+            for t in both
+        ),
+        "free_run_max_m": max(
+            float(np.linalg.norm(
+                rigid3.trans(gpu[t].local_pose) - rigid3.trans(cpu[t].local_pose)
+            ))
+            for t in both
+        ),
+    }
+    profile = profile_phase(measurements[: 2 * chunk], chunk)
+
+    r = {
+        "phase": "slice",
+        "scans": num_scans,
+        "matched": len(results),
+        "inserted": sum(x.insertion_result is not None for x in results),
+        "chunk": chunk,
+        "wall_s": wall,
+        "scans_per_s": num_scans / wall,
+        "real_time_ratio": num_scans * time_step / wall,
+        "steady_scans_per_s": (num_scans - chunk) / steady_wall,
+        "steady_real_time_ratio": (num_scans - chunk) * time_step / steady_wall,
+        "launches": {"correlative_window": launches},
+        "max_position_error_m": max_err,
+        **step,
+        **free,
+        "profile": profile,
+        "card": smi,
+    }
+    emit(r)
+    return r
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from cartographer_tpu_torch.kernels import _build
+
+    device = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    emit({
+        "phase": "device", "name": kind, "nvidia_smi": smi,
+        "count": torch.cuda.device_count(), "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+    })
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "sources": _build.sources(),
+          "seconds": time.perf_counter() - t0})
+
+    kernels = kernel_phase(device)
+    sl = slice_phase(device, smi)
+
+    main_case = kernels["main"]
+    emit({"kernels": [{
+        "name": "correlative_window",
+        "route": "cuda",
+        "source": "cartographer_tpu_torch/csrc/correlative_window.cu",
+        "replaces": "cartographer_tpu/ops/pallas_kernels.py:82",
+        "launches": sl["launches"]["correlative_window"],
+        "max_abs_err": main_case["max_abs_err"],
+        "ms": main_case["kernel_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": None,
+    }]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,72 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points default to CUDA without falling back."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import cartographer_tpu_torch as pkg
+names = [pkg.__name__]
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+bad = [k for k in sys.modules
+       if k == "cartographer_tpu" or k.startswith("cartographer_tpu.")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def _run(code, cwd=REPO):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_imports_without_jax_or_the_jax_package():
+    proc = _run(_IMPORT_ALL)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20  # every module was imported
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cartographer_tpu_torch.common.config import TrajectoryBuilder2DOptions
+    from cartographer_tpu_torch.device import resolve_device
+    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
+        ChunkedLocalTrajectoryBuilder2D,
+    )
+    from cartographer_tpu_torch.ops import frontend_2d
+
+    opts = TrajectoryBuilder2DOptions(use_imu_data=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ChunkedLocalTrajectoryBuilder2D(opts, {"range"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frontend_2d.init_state(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frontend_2d.state_from_numpy({})
+    assert resolve_device("cpu") == torch.device("cpu")
+    ChunkedLocalTrajectoryBuilder2D(opts, {"range"}, device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
