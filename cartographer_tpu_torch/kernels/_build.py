@@ -6,7 +6,8 @@ the hash covers the source, the headers beside it and the compiler flags;
 an unchanged source is never rebuilt. The build runs at first use (never
 at import) and a failed build raises with nvcc's output.
 `build_all()` starts one nvcc per source at once, for callers that want
-every kernel ready before they start timing.
+every kernel ready before they start timing, and returns nvcc's output
+(with ptxas's registers and spills per kernel, `-Xptxas -v`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / ".build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -70,22 +71,25 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return log
 
 
-def build_all() -> None:
-    """Build every source under csrc/, one nvcc per source, all at once."""
+def build_all() -> Dict[str, str]:
+    """Build every source under csrc/, one nvcc per source, all at once.
+    Returns nvcc's output for each source it built (none for a library
+    that was already built)."""
     with _lock:
         started = {n: _start(n) for n in sources()}
-        for name, s in started.items():
-            if s is not None:
-                _finish(name, s)
+        return {
+            name: _finish(name, s) for name, s in started.items() if s is not None
+        }
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,9 +2,14 @@
 launch count and its plain PyTorch version.
 
 Replaces the TPU kernel cartographer_tpu/ops/pallas_kernels.py:82
-(`correlative_score_windows`). `ops/scan_matching/correlative_2d.window_sums`
-launches the kernel for CUDA tensors and takes `window_sums_plain` for CPU
-tensors only.
+(`correlative_score_windows`). The kernel runs one block per angle: the
+warps take the angle's points in tiles of 32, the lanes of a warp hold
+the D x D window in registers (lane = point slot x window column, so one
+warp load reads one window row of 32 // D points), and the sums are
+reduced in a fixed order without atomics, so every run gives the same
+result. The note at the top of the source gives the design and bounds.
+`ops/scan_matching/correlative_2d.window_sums` launches the kernel for
+CUDA tensors and takes `window_sums_plain` for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -58,6 +63,11 @@ def window_sums(prob, ix, iy, point_mask, num_linear: int):
     point_mask bool [N] -> f32 [A, D, D], D = 2 * num_linear + 1.
     Raises on anything the kernel does not take."""
     global LAUNCHES
+    dev = prob.device
+    if dev.type != "cuda" or ix.device != dev or iy.device != dev or (
+        point_mask.device != dev
+    ):
+        raise ValueError("all inputs must lie on one CUDA device")
     if prob.dim() != 2 or ix.dim() != 2 or ix.shape != iy.shape:
         raise ValueError(
             f"shapes: prob {tuple(prob.shape)}, ix {tuple(ix.shape)}, "
@@ -70,28 +80,28 @@ def window_sums(prob, ix, iy, point_mask, num_linear: int):
         iy.dtype != torch.int32 or point_mask.dtype != torch.bool
     ):
         raise TypeError("expected prob f32, ix/iy i32, point_mask bool")
-    tensors = (prob, ix, iy, point_mask)
-    if not all(t.is_cuda and t.device == prob.device for t in tensors):
-        raise ValueError("all inputs must lie on one CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (prob.is_contiguous() and ix.is_contiguous() and iy.is_contiguous()
+            and point_mask.is_contiguous()):
         raise ValueError("inputs must be contiguous")
     if num_linear < 0:
         raise ValueError(f"num_linear {num_linear} < 0")
     h, w = prob.shape
     d = 2 * num_linear + 1
-    out = torch.empty((a, d, d), dtype=torch.float32, device=prob.device)
-    if out.numel() == 0:
+    out = torch.empty((a, d, d), dtype=torch.float32, device=dev)
+    if a == 0:
         return out
     if h == 0 or w == 0:
         raise ValueError("empty grid")
-    fn = _function()
-    with torch.cuda.device(prob.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            prob.data_ptr(), ix.data_ptr(), iy.data_ptr(),
-            point_mask.data_ptr(), out.data_ptr(),
-            h, w, a, n, num_linear, stream,
-        )
+    args = (
+        prob.data_ptr(), ix.data_ptr(), iy.data_ptr(), point_mask.data_ptr(),
+        out.data_ptr(), h, w, a, n, num_linear,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if dev.index == torch.cuda.current_device():
+        rc = _function()(*args)
+    else:  # the launch goes to the current device
+        with torch.cuda.device(dev):
+            rc = _function()(*args)
     if rc != 0:
         raise RuntimeError(f"correlative_window_sums launch failed: cuda error {rc}")
     LAUNCHES += 1

@@ -35,12 +35,13 @@ _window_sums_xla = correlative_window.window_sums_plain
 
 
 def window_sums(prob, ix, iy, point_mask, num_linear: int):
-    """Summed window scores [A, D, D]: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """Summed window scores [A, D, D]: the CUDA kernel for CUDA tensors
+    (one launch, one block per angle), the plain version for CPU tensors.
+    `prob` and `point_mask` come from the caller and may be strided; both
+    callers below build `ix` and `iy` contiguous."""
     if prob.is_cuda:
         return correlative_window.window_sums(
-            prob.contiguous(), ix.contiguous(), iy.contiguous(),
-            point_mask.contiguous(), num_linear,
+            prob.contiguous(), ix, iy, point_mask.contiguous(), num_linear
         )
     return _window_sums_xla(prob, ix, iy, point_mask, num_linear)
 
