@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from cartographer_tpu_torch.mapping import probability_values as pv
@@ -37,3 +38,13 @@ class Grid2D:
 
     def correspondence_cost(self) -> torch.Tensor:
         return 1.0 - self.probability()
+
+
+def grid_from_numpy(log_odds, known, origin, resolution: float, device) -> Grid2D:
+    """Grid2D on `device` from numpy (e.g. a JAX package grid's arrays)."""
+    return Grid2D(
+        log_odds=torch.tensor(np.asarray(log_odds, np.float32), device=device),
+        known=torch.tensor(np.asarray(known, bool), device=device),
+        origin=torch.tensor(np.asarray(origin, np.float32), device=device),
+        resolution=float(resolution),
+    )

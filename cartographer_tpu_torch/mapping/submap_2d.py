@@ -12,7 +12,7 @@ from typing import Optional
 
 import numpy as np
 
-from cartographer_tpu_torch.mapping.grid_2d import Grid2D
+from cartographer_tpu_torch.mapping.grid_2d import Grid2D, grid_from_numpy
 
 
 @dataclasses.dataclass
@@ -24,3 +24,16 @@ class Submap2D:
 
     def finish(self) -> None:
         self.insertion_finished = True
+
+
+def submap_from_numpy(
+    local_pose, log_odds, known, origin, resolution: float, device,
+    num_range_data: int = 0, insertion_finished: bool = False,
+) -> Submap2D:
+    """Submap2D whose grid is built from numpy arrays on `device`."""
+    return Submap2D(
+        local_pose=np.asarray(local_pose, np.float64),
+        grid=grid_from_numpy(log_odds, known, origin, resolution, device),
+        num_range_data=num_range_data,
+        insertion_finished=insertion_finished,
+    )

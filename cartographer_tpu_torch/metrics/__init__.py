@@ -1,14 +1,15 @@
-"""Metrics with null-object defaults (the instruments the ported slice
-touches, copied from cartographer_tpu/metrics/__init__.py).
+"""Metrics with null-object defaults (the instruments the ported slices
+touch, copied from cartographer_tpu/metrics/__init__.py).
 
-Reference: cartographer/metrics/{counter,gauge,family_factory}.h —
+Reference: cartographer/metrics/{counter,gauge,histogram,family_factory}.h —
 instrumentation is free unless a real family factory is registered.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
-from typing import Dict
+from typing import Dict, List, Sequence
 
 
 class Counter:
@@ -25,6 +26,11 @@ class Gauge:
 
     def value(self) -> float:
         return 0.0
+
+
+class HistogramMetric:
+    def observe(self, value: float) -> None:
+        pass
 
 
 class _RealCounter(Counter):
@@ -53,6 +59,26 @@ class _RealGauge(Gauge):
         return self._value
 
 
+class _RealHistogram(HistogramMetric):
+    def __init__(self, boundaries: Sequence[float]):
+        self._boundaries = list(boundaries)
+        self._counts = [0] * (len(self._boundaries) + 1)
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._counts[bisect.bisect_left(self._boundaries, value)] += 1
+            self._sum += value
+
+    def counts(self) -> List[int]:
+        return list(self._counts)
+
+
+def score_histogram_boundaries(lo: float, hi: float, n: int = 20) -> List[float]:
+    return [lo + (hi - lo) * i / n for i in range(1, n + 1)]
+
+
 class FamilyFactory:
     """Null by default; `enable_collection()` swaps in real metrics."""
 
@@ -65,6 +91,12 @@ class FamilyFactory:
 
     def gauge(self, name: str) -> Gauge:
         return self._get(name, _RealGauge if self._real else Gauge)
+
+    def histogram(self, name: str, boundaries: Sequence[float]) -> HistogramMetric:
+        return self._get(
+            name,
+            (lambda: _RealHistogram(boundaries)) if self._real else HistogramMetric,
+        )
 
     def _get(self, name, ctor):
         if name not in self._registry:
@@ -93,12 +125,34 @@ def enable_collection() -> FamilyFactory:
 
 def _register_all() -> None:
     global local_slam_real_time_ratio, grid_oob_points
+    global pose_graph_constraints_inter, pose_graph_constraints_intra
+    global constraint_scores, constraints_found, constraints_searched
+    global optimization_runs, beam_overflow_retries
     local_slam_real_time_ratio = _factory.gauge(
         "mapping_2d_local_trajectory_builder_real_time_ratio"
     )
     # Range-data endpoints dropped because they fell outside a fixed grid
     # extent (the reference grows its grids; here the loss is observable).
     grid_oob_points = _factory.counter("mapping_grid_out_of_extent_points")
+    pose_graph_constraints_inter = _factory.gauge("mapping_constraints_inter_submap")
+    pose_graph_constraints_intra = _factory.gauge("mapping_constraints_intra_submap")
+    constraint_scores = _factory.histogram(
+        "mapping_constraint_builder_scores",
+        boundaries=score_histogram_boundaries(0.0, 1.0),
+    )
+    constraints_found = _factory.counter(
+        "mapping_constraint_builder_constraints_found"
+    )
+    constraints_searched = _factory.counter(
+        "mapping_constraint_builder_constraints_searched"
+    )
+    optimization_runs = _factory.counter("mapping_pose_graph_optimizations")
+    # BnB searches whose per-level survivor set exceeded the beam cap (the
+    # search is exact only while the cap does not bind; such searches are
+    # re-run with a widened beam).
+    beam_overflow_retries = _factory.counter(
+        "mapping_constraint_builder_beam_overflow_retries"
+    )
 
 
 _register_all()

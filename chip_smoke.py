@@ -7,9 +7,10 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: every kernel under cartographer_tpu_torch/csrc, one nvcc per
-   source, all started together, with ptxas's registers and spills per
-   kernel.
+2. build: every source under cartographer_tpu_torch/csrc (the CUDA
+   kernels with nvcc, the native loop-closure search with the host C++
+   compiler), one compiler per source, all started together, with
+   ptxas's registers and spills per kernel.
 3. kernel: each kernel against its plain PyTorch version on the card at
    the main path's shapes and at edge shapes; device times from CUDA
    graphs of 20 calls, single-call times with launch latency, an empty
@@ -25,7 +26,16 @@ exits non-zero:
    timed span, the frontend runs again up to the first window-sum call
    of the third chunk, whose inputs become the kernel phase's "real"
    case.
-5. kernels: one line with every kernel's numbers (the main case).
+5. backend: MapBuilder on cuda over one lap of bench.py's scaled world
+   (1000 scans of 1024 beams) with bench.py's backend settings and the
+   asynchronous pose graph: the frontend, loop-closure searches through
+   the device branch-and-bound, their batched LM refinement, SPA, and
+   the final optimization. Launch counts from that run only, node error
+   and aligned ATE against ground truth, per-drain search and refine
+   times, SPA times; then one drain's searches rerun on the CPU and
+   through the native search, and the last SPA problem re-solved on the
+   CPU.
+6. kernels: one line with every kernel's numbers (the main case).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script fails before printing a result. It
@@ -544,6 +554,377 @@ def slice_phase(device, smi):
     return r, real_args
 
 
+# The backend phase's world: one lap of bench.py's scaled world (a
+# figure-eight through the pillared hall, 1000 scans of 1024 beams).
+BACKEND_WORLD = dict(
+    laps=1.0, duration_per_lap=50.0, time_step=0.05, num_beams=1024,
+    max_range=12.0, noise_std=0.01,
+)
+
+
+# Nodes of the frontend's startup transient (bench.py's
+# aligned_ate_max_excl_startup_m window).
+STARTUP_NODES = 8
+
+
+def backend_options():
+    """bench.py's scaled-world backend (_bench_scaled_world) behind the
+    slice's frontend (loop_world_options), with the search on the device."""
+    from cartographer_tpu_torch.common.config import (
+        FastCorrelativeScanMatcherOptions2D,
+        MapBuilderOptions,
+        MotionFilterOptions,
+        PoseGraphOptions,
+        TrajectoryBuilderOptions,
+    )
+
+    pose_graph = PoseGraphOptions(optimize_every_n_nodes=40)
+    cb = pose_graph.constraint_builder
+    cb.sampling_ratio = 0.4
+    cb.min_score = 0.55
+    cb.max_constraint_distance = 10.0
+    cb.loop_closure_backend = "device"
+    cb.fast_correlative_scan_matcher = FastCorrelativeScanMatcherOptions2D(
+        linear_search_window=4.0, angular_search_window=np.radians(30.0),
+        branch_and_bound_depth=6, beam_width=4096,
+    )
+    frontend = loop_world_options()
+    frontend.motion_filter = MotionFilterOptions(
+        max_distance_meters=0.15, max_angle_radians=0.08
+    )
+    return (
+        MapBuilderOptions(
+            use_trajectory_builder_2d=True, pose_graph=pose_graph,
+            async_pose_graph=True,
+        ),
+        TrajectoryBuilderOptions(
+            trajectory_builder_2d=frontend, use_chunked_device_frontend=True,
+            device_frontend_chunk_size=32,
+        ),
+    )
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def replay_drain(searches, source, options, backend, device):
+    """A fresh ConstraintBuilder2D on `device` with `backend`, fed `searches`
+    against the grids and submap poses of the builder `source` (no sampling,
+    no distance gate, so it runs exactly these searches)."""
+    import copy
+
+    from cartographer_tpu_torch.mapping.constraint_builder_2d import (
+        ConstraintBuilder2D,
+    )
+
+    opts = copy.deepcopy(options)
+    opts.sampling_ratio = 1.0
+    opts.max_constraint_distance = 1e9
+    opts.loop_closure_backend = backend
+    cb = ConstraintBuilder2D(opts, device=device)
+    for s in searches:
+        cb.set_submap_local_pose(s.submap_id, source._submap_local_pose(s.submap_id))
+        grid = source._submap_grids[s.submap_id]
+        if s.initial_relative_pose is None:
+            cb.maybe_add_global_constraint(s.submap_id, grid, s.node_id, s.constant_data)
+        else:
+            cb.maybe_add_constraint(
+                s.submap_id, grid, s.node_id, s.constant_data, s.initial_relative_pose
+            )
+    return cb
+
+
+def _zbar_by_pair(constraints):
+    return {(c.submap_id, c.node_id): np.asarray(c.pose.zbar_ij) for c in constraints}
+
+
+def _angle_diff(a, b):
+    return float(abs((a - b + np.pi) % (2 * np.pi) - np.pi))
+
+
+def drain_checks(drain, source, options, resolution, device):
+    """One drain's searches again: through the CPU port (the same found
+    set, BnB scores within 1e-5, refined poses within 1e-3 m / 1e-3 rad
+    of the card's drain), and through the native backend (poses within
+    one cell and 0.01 rad of the device search)."""
+    searches = drain["searches"]
+    card = replay_drain(searches, source, options, "device", device)
+    card_found = card._run_searches_device(searches)
+    cpu = replay_drain(searches, source, options, "device", "cpu")
+    t0 = time.perf_counter()
+    cpu_zbar = _zbar_by_pair(cpu.run_pending())
+    cpu_s = time.perf_counter() - t0
+    cpu_found = cpu._run_searches_device(searches)
+    card_zbar = _zbar_by_pair(drain["constraints"])
+    if set(cpu_zbar) != set(card_zbar):
+        raise AssertionError(
+            f"drain replay: CPU found {len(cpu_zbar)} constraints, the card "
+            f"{len(card_zbar)}; they differ in {len(set(cpu_zbar) ^ set(card_zbar))}"
+        )
+    score_err = 0.0
+    for (_, g), (_, c) in zip(card_found, cpu_found):
+        if (g is None) != (c is None):
+            raise AssertionError("drain replay: CPU and card BnB found different sets")
+        if g is not None:
+            score_err = max(score_err, abs(g.score - c.score))
+    if score_err > 1e-5:
+        raise AssertionError(f"drain replay: BnB scores differ by {score_err:.2e}")
+    pose_m = pose_rad = 0.0
+    for key, z in card_zbar.items():
+        pose_m = max(pose_m, float(np.max(np.abs(cpu_zbar[key][:2] - z[:2]))))
+        pose_rad = max(pose_rad, _angle_diff(cpu_zbar[key][2], z[2]))
+    if pose_m > 1e-3 or pose_rad > 1e-3:
+        raise AssertionError(
+            f"drain replay: refined poses differ by {pose_m:.2e} m, {pose_rad:.2e} rad"
+        )
+
+    native = replay_drain(searches, source, options, "native", device)
+    t0 = time.perf_counter()
+    native_found = native._run_searches_native(searches)
+    native_s = time.perf_counter() - t0
+    native_m = native_rad = 0.0
+    differ = near_gate = 0
+    for (s, g), (_, n) in zip(card_found, native_found):
+        if (g is None) != (n is None):
+            differ += 1
+            score = (g or n).score
+            gate = options.global_localization_min_score if (
+                s.initial_relative_pose is None) else options.min_score
+            near_gate += abs(score - gate) < 0.01
+            continue
+        if g is not None:
+            native_m = max(native_m, float(np.max(np.abs(n.pose[:2] - g.pose[:2]))))
+            native_rad = max(native_rad, _angle_diff(n.pose[2], g.pose[2]))
+    if differ != near_gate:
+        raise AssertionError(
+            f"native and device searches disagree on {differ - near_gate} "
+            "found flags away from the score gate"
+        )
+    if native_m > resolution + 1e-6 or native_rad >= 0.01:
+        raise AssertionError(
+            f"native and device poses differ by {native_m:.3f} m, {native_rad:.4f} rad"
+        )
+    return {
+        "replay_searches": len(searches),
+        "replay_found": len(card_zbar),
+        "replay_cpu_s": cpu_s,
+        "replay_cpu_max_score_err": score_err,
+        "replay_cpu_max_m": pose_m,
+        "replay_cpu_max_rad": pose_rad,
+        "replay_native_s": native_s,
+        "replay_native_max_m": native_m,
+        "replay_native_max_rad": native_rad,
+        "replay_native_found_differ_at_gate": differ,
+    }
+
+
+def spa_check(solve, call):
+    """The run's last SPA problem re-solved on the CPU: poses within
+    1e-3 m / 1e-3 rad of the card's solve."""
+    import torch
+
+    def to_cpu(tables):
+        return None if tables is None else type(tables)(*[t.cpu() for t in tables])
+
+    t0 = time.perf_counter()
+    got = solve(to_cpu(call["problem"]), **{**call["kw"], "extras": to_cpu(call["kw"].get("extras"))})
+    cpu_s = time.perf_counter() - t0
+    worst_m = worst_rad = 0.0
+    for g, c in zip(call["out"][:-1], got[:-1]):
+        g, c = g.cpu().numpy(), c.numpy()
+        worst_m = max(worst_m, float(np.max(np.abs(g[:, :2] - c[:, :2]), initial=0.0)))
+        d = np.abs((g[:, 2] - c[:, 2] + np.pi) % (2 * np.pi) - np.pi)
+        worst_rad = max(worst_rad, float(np.max(d, initial=0.0)))
+    if worst_m > 1e-3 or worst_rad > 1e-3:
+        raise AssertionError(
+            f"SPA card/CPU poses differ by {worst_m:.2e} m, {worst_rad:.2e} rad"
+        )
+    return {
+        "spa_nodes": int(call["problem"].node_poses.shape[0]),
+        "spa_submaps": int(call["problem"].submap_poses.shape[0]),
+        "spa_constraints": int(torch.sum(call["problem"].c_mask).item()),
+        "spa_cpu_s": cpu_s,
+        "spa_cpu_max_m": worst_m,
+        "spa_cpu_max_rad": worst_rad,
+        "spa_cost_card": float(call["out"][-1]),
+        "spa_cost_cpu": float(got[-1]),
+    }
+
+
+def backend_phase(device, smi):
+    """MapBuilder on `device` over BACKEND_WORLD: the frontend, the pose
+    graph with asynchronous drains, loop closure through the device BnB and
+    the batched LM, SPA, and the final optimization; then one drain and the
+    last SPA problem checked against the CPU and the native search."""
+    from cartographer_tpu_torch import metrics
+    from cartographer_tpu_torch.evaluation.trajectory_metrics import aligned_ate
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.mapping import optimization_problem_2d as op2d
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.testing.synthetic import (
+        FAKE_START_TIME,
+        generate_loop_world,
+    )
+    from cartographer_tpu_torch.transform import rigid3
+
+    measurements, true_poses = generate_loop_world(**BACKEND_WORLD)
+    time_step = BACKEND_WORLD["time_step"]
+    mb_options, traj_options = backend_options()
+    collected = metrics.enable_collection()
+    mb = MapBuilder(mb_options, device=device)
+    pg = mb.pose_graph
+    cb = pg._constraint_builder
+    drains = []
+    run_pending = cb.run_pending
+
+    feed_end = [None]
+
+    def recorded_run_pending():
+        started = time.perf_counter()
+        out = run_pending()
+        if cb.last_drain_searches:
+            drains.append(dict(
+                searches=cb.last_drain_searches, constraints=out,
+                timings=dict(cb.last_drain_timings),
+                during_feed=feed_end[0] is None or started < feed_end[0],
+            ))
+        return out
+
+    solve = op2d.solve
+    last_solve = {}
+
+    def recorded_solve(problem, **kw):
+        out = solve(problem, **kw)
+        last_solve.update(problem=problem, kw=kw, out=out)
+        return out
+
+    cb.run_pending = recorded_run_pending
+    op2d.solve = recorded_solve
+    try:
+        tid = mb.add_trajectory_builder({"range"}, traj_options)
+        builder = mb.get_trajectory_builder(tid)
+        sync(device)
+        cw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for m in measurements:
+            builder.add_sensor_data("range", m)
+        sync(device)
+        feed_end[0] = time.perf_counter()
+        feed_s = feed_end[0] - t0
+        t0 = time.perf_counter()
+        mb.finish_trajectory(tid)
+        sync(device)
+        catch_up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pg.run_final_optimization()
+        sync(device)
+        final_s = time.perf_counter() - t0
+        launches = cw.LAUNCHES
+        mb.shutdown()
+    finally:
+        op2d.solve = solve
+        metrics.register_family_factory(metrics.FamilyFactory())
+    registry = collected.registry()
+    searched = int(registry["mapping_constraint_builder_constraints_searched"].value())
+    retries = int(registry["mapping_constraint_builder_beam_overflow_retries"].value())
+
+    # Accuracy: node errors relative to a first node, and SE(2)-aligned
+    # ATE. The first STARTUP_NODES nodes carry the frontend's startup
+    # transient (the platform starts at full speed with no velocity
+    # estimate, so the first scans unwarp wrongly; bench.py's
+    # aligned_ate_max_excl_startup_m), so the asserted error is taken
+    # relative to the first node after them.
+    nodes = list(pg.get_trajectory_nodes().items(NodeId))
+    if len(nodes) <= 2 * STARTUP_NODES:
+        raise AssertionError(f"only {len(nodes)} nodes")
+    index = [int(round((n.constant_data.time - FAKE_START_TIME) / time_step)) for _, n in nodes]
+    est_pose = [np.asarray(n.global_pose, np.float64) for _, n in nodes]
+    true_pose = [true_poses[k] for k in index]
+    if not np.all(np.isfinite(est_pose)):
+        raise AssertionError("non-finite node pose")
+
+    def errors_from(first):
+        est0_inv, true0_inv = rigid3.inverse(est_pose[first]), rigid3.inverse(true_pose[first])
+        est = np.stack([rigid3.compose(est0_inv, p)[:2] for p in est_pose[first:]])
+        true = np.stack([rigid3.compose(true0_inv, p)[:2] for p in true_pose[first:]])
+        return np.linalg.norm(est - true, axis=1), est, true
+
+    errs, _, _ = errors_from(STARTUP_NODES)
+    errs_all, est_xy, true_xy = errors_from(0)
+    ate = aligned_ate(est_xy, true_xy)
+    inter = [c for c in pg.constraints if c.tag == "INTER_SUBMAP"]
+    if not inter:
+        raise AssertionError("no INTER_SUBMAP constraint")
+    if searched <= 0:
+        raise AssertionError("no device BnB search")
+    if launches <= 0:
+        raise AssertionError("correlative_window was not launched in the backend phase")
+    if errs.max() > 0.3:
+        raise AssertionError(
+            f"max node error {errs.max():.3f} m > 0.3 m (relative to node {STARTUP_NODES})"
+        )
+
+    resolution = traj_options.trajectory_builder_2d.submaps.grid_options_2d.resolution
+    # The drain with the most constraints among those of at most 80
+    # searches (the CPU reruns them at about one search per 0.1-0.5 s).
+    small = [d for d in drains if d["constraints"] and len(d["searches"]) <= 80]
+    if not small:
+        raise AssertionError("no drain of at most 80 searches found a constraint")
+    drain = max(small, key=lambda d: len(d["constraints"]))
+    replay = drain_checks(
+        drain, cb, mb_options.pose_graph.constraint_builder, resolution, device
+    )
+    spa = spa_check(solve, last_solve)
+
+    per_drain = []
+    for d in drains:
+        t = d["timings"]
+        refine_s = t["refine_dispatch_s"] + t["refine_wait_s"]
+        per_drain.append({
+            "searches": t["searches"], "matches": t["matches"],
+            "search_s": t["search_s"], "searches_per_s": t["searches"] / t["search_s"],
+            "refine_s": refine_s, "total_s": t["total_s"],
+            "during_feed": d["during_feed"],
+        })
+    r = {
+        "phase": "backend",
+        "scans": len(measurements),
+        "nodes": len(nodes),
+        "submaps": len(list(pg.get_all_submap_data().items(SubmapId))),
+        "searches": searched,
+        "beam_overflow_retries": retries,
+        "constraints_found": len(inter),
+        "constraints_intra": len(pg.constraints) - len(inter),
+        "drains": per_drain,
+        "searches_per_s_all_drains": sum(d["searches"] for d in per_drain)
+        / sum(d["search_s"] for d in per_drain),
+        "refine_s_per_drain_mean": float(np.mean([d["refine_s"] for d in per_drain])),
+        "spa_s_last": pg.solve_seconds[-2] if len(pg.solve_seconds) > 1 else None,
+        "spa_s_final": pg.solve_seconds[-1],
+        "spa_solves": len(pg.solve_seconds),
+        "max_node_error_m": float(errs.max()),
+        "max_node_error_from_node_0_m": float(errs_all.max()),
+        "aligned_ate_mean_m": float(np.mean(ate)),
+        "aligned_ate_max_m": float(np.max(ate)),
+        "aligned_ate_max_excl_startup_m": float(np.max(ate[STARTUP_NODES:])),
+        "feed_s": feed_s,
+        "feed_scans_per_s": len(measurements) / feed_s,
+        "catch_up_s": catch_up_s,
+        "final_optimization_s": final_s,
+        "launches": {"correlative_window": launches},
+        **replay,
+        **spa,
+        "card": smi,
+    }
+    emit(r)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -572,6 +953,7 @@ def main() -> int:
     kernels = kernel_phase(device)
     sl, real_args = slice_phase(device, smi)
     kernels["real"] = kernel_case("real", real_args)
+    backend_phase(device, smi)
 
     main_case = kernels["main"]
     emit({"kernels": [{
