@@ -7,11 +7,14 @@ hand-written CUDA for Hopper (`csrc/`, built at first use by
 package: the pure-Python modules it needs are copied under the same
 relative paths.
 
-Ported so far: the chunked 2D local-SLAM frontend
+Ported so far: 2D SLAM from scans to an optimized map. Local SLAM runs
+per scan (`mapping/local_trajectory_builder_2d.LocalTrajectoryBuilder2D`,
+the default, on probability grids or TSDFs) or chunked
 (`mapping/chunked_frontend_2d.ChunkedLocalTrajectoryBuilder2D` over
-`ops/frontend_2d.run_chunk`) with online correlative matching, no IMU and
-no odometry. Entry points run on CUDA unless the caller passes
-`device="cpu"`.
+`ops/frontend_2d.run_chunk`), with IMU and odometry fusion and online
+correlative matching; behind it the pose graph with loop closure, SPA and
+the trimmers, under `mapping/map_builder.MapBuilder`. Entry points run on
+CUDA unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,8 @@ replayed on the host from the fetched event flags, so the Submap2D
 objects match ActiveSubmaps2D semantics (mapping/2d/submap_2d.cc:137-219).
 Grids stay device tensors end to end.
 
-Scope of this port: no IMU, no odometry; online correlative matching on
-or off. Chunks are dispatched synchronously.
+Scope of this port: IMU and odometry fusion, online correlative matching
+on or off. Chunks are dispatched synchronously.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.mapping import probability_values as pv
 from cartographer_tpu_torch.mapping.grid_2d import Grid2D
+from cartographer_tpu_torch.mapping.imu_tracker import ImuTracker
 from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
     InsertionResult,
     MatchingResult,
@@ -138,8 +139,7 @@ def _round_up_multiple(n: int, multiple: int = 256) -> int:
 def supports(options: TrajectoryBuilder2DOptions) -> bool:
     """Whether the chunked frontend covers the given configuration (as in
     the JAX package: one accumulated scan, probability grids, the
-    constant-velocity extrapolator). This port further needs
-    use_imu_data=False; the builder raises NotImplementedError otherwise."""
+    constant-velocity extrapolator)."""
     return (
         options.num_accumulated_range_data == 1
         and options.submaps.grid_options_2d.grid_type == "PROBABILITY_GRID"
@@ -162,11 +162,6 @@ class ChunkedLocalTrajectoryBuilder2D:
             raise ValueError(
                 "ChunkedLocalTrajectoryBuilder2D supports probability-grid "
                 "configurations with the constant-velocity extrapolator"
-            )
-        if options.use_imu_data:
-            raise NotImplementedError(
-                "ChunkedLocalTrajectoryBuilder2D: use_imu_data=True is not "
-                "ported yet"
             )
         self._device = resolve_device(device)
         self._options = options
@@ -204,7 +199,7 @@ class ChunkedLocalTrajectoryBuilder2D:
             mf_max_angle=options.motion_filter.max_angle_radians,
             pose_queue_duration=options.pose_extrapolator.constant_velocity.pose_queue_duration,
             num_steps=num_steps,
-            use_imu=False,
+            use_imu=options.use_imu_data,
             imu_gravity_time_constant=(
                 options.pose_extrapolator.constant_velocity.imu_gravity_time_constant
             ),
@@ -235,6 +230,9 @@ class ChunkedLocalTrajectoryBuilder2D:
         self._state: Optional[frontend_2d.FrontendState2D] = None
         self._epoch: Optional[Time] = None
         self._buffer: List[dict] = []  # scans awaiting dispatch
+        self._imu_buffer: List = []  # IMU samples awaiting assignment
+        self._odom_buffer: List = []  # odometry samples awaiting assignment
+        self._sticky_odometry = False  # upgraded on the first sample
         self._results: List[MatchingResult] = []  # of dispatched chunks
         # Sticky static shapes/flags, grow-only, as in the JAX builder, so
         # both implementations see the same chunk layouts.
@@ -253,14 +251,44 @@ class ChunkedLocalTrajectoryBuilder2D:
     # -- sensor feeds ---------------------------------------------------------
 
     def add_imu_data(self, imu_data) -> None:
-        raise NotImplementedError(
-            "ChunkedLocalTrajectoryBuilder2D.add_imu_data is not ported yet"
-        )
+        if not self._options.use_imu_data:
+            raise RuntimeError("IMU data provided but use_imu_data=False")
+        if self._state is None:
+            # PoseExtrapolator::InitializeWithImu: seed the tracker from the
+            # first sample and add the initial pose at its time — computed
+            # with the host ImuTracker, then mirrored into device state.
+            tracker = ImuTracker(
+                self._cfg.imu_gravity_time_constant, imu_data.time
+            )
+            tracker.add_imu_linear_acceleration_observation(
+                imu_data.linear_acceleration
+            )
+            tracker.add_imu_angular_velocity_observation(
+                imu_data.angular_velocity
+            )
+            tracker.advance(imu_data.time)
+            self._state = frontend_2d.init_state(
+                self._cfg.grid_size,
+                0.0,
+                initial_q=tracker.orientation(),
+                tracker_grav=tracker._gravity_vector,
+                tracker_omega=tracker._imu_angular_velocity,
+                tracker_last_acc_t=0.0,
+                device=self._device,
+            )
+            self._epoch = imu_data.time
+        self._imu_buffer.append(imu_data)
 
     def add_odometry_data(self, odometry_data) -> None:
-        raise NotImplementedError(
-            "ChunkedLocalTrajectoryBuilder2D.add_odometry_data is not ported yet"
-        )
+        # IMU + odometry interleave on the device: the odometry tracker
+        # copy syncs to the gyro-fed main tracker at each add_pose and
+        # advances with the latest gyro rate (ops/frontend_2d._odometry_fold).
+        if self._state is None:
+            # Extrapolator not yet initialized
+            # (local_trajectory_builder_2d.cc AddOdometryData).
+            return
+        self._sticky_odometry = True
+        self._odom_buffer.append(odometry_data)
 
     def add_range_data(
         self, sensor_id: str, unsynchronized_data: TimedPointCloudData
@@ -272,11 +300,22 @@ class ChunkedLocalTrajectoryBuilder2D:
             return []
         time = synchronized.time
         if self._state is None:
+            if self._options.use_imu_data:
+                # Until the first IMU message arrives we cannot compute the
+                # rangefinder orientation (local_trajectory_builder_2d.cc).
+                return []
             # create_without_imu: identity pose at the first scan's time.
             self._state = frontend_2d.init_state(
                 self._cfg.grid_size, 0.0, device=self._device
             )
             self._epoch = time
+        # Samples strictly before this scan belong to its window.
+        scan_imu = []
+        while self._imu_buffer and self._imu_buffer[0].time < time:
+            scan_imu.append(self._imu_buffer.pop(0))
+        scan_odom = []
+        while self._odom_buffer and self._odom_buffer[0].time < time:
+            scan_odom.append(self._odom_buffer.pop(0))
         origins = synchronized.origins[synchronized.origin_index]  # (N, 3)
         # Single-origin scans only (one rangefinder, or collated to one).
         origin = origins[0] if origins.ndim == 2 else origins
@@ -286,6 +325,8 @@ class ChunkedLocalTrajectoryBuilder2D:
                 "points": np.asarray(synchronized.points, np.float32),
                 "times": np.asarray(synchronized.times, np.float64),
                 "origin": np.asarray(origin, np.float32).reshape(3),
+                "imu": scan_imu,
+                "odom": scan_odom,
             }
         )
         if len(self._buffer) >= self._chunk:
@@ -322,7 +363,16 @@ class ChunkedLocalTrajectoryBuilder2D:
         # Beyond max_range only the ray direction matters, so ranges are
         # clamped to keep the int16 packing in bounds.
         clamp_r = 1.25 * max(max_range, self._options.missing_data_ray_length)
+        # IMU slots are per chunk (not sticky): a first chunk's backlog of
+        # samples would otherwise lengthen the sequential tracker fold for
+        # the whole run.
         m = self._pad_imu
+        while m < max((len(s["imu"]) for s in scans), default=1):
+            m *= 2
+        use_odom = self._sticky_odometry
+        mo = 4
+        while mo < max((len(s["odom"]) for s in scans), default=1):
+            mo *= 2
         # Pass 1: per-scan quantization + sticky-flag detection.
         has_misses = self._sticky_misses
         planar = self._sticky_planar
@@ -380,14 +430,19 @@ class ChunkedLocalTrajectoryBuilder2D:
             self._cfg, max_imu_per_scan=m, chunk_size=c, num_points=n,
             max_packed_inserts=self._pack_cap,
             planar_z=planar, linear_times=linear, has_misses=has_misses,
+            use_odometry=use_odom, max_odom_per_scan=mo,
         )
-        (o_points, o_times, o_meta, o_imu, _o_odom, total) = (
+        (o_points, o_times, o_meta, o_imu, o_odom, total) = (
             frontend_2d.input_layout(cfg)
         )
         buf = np.zeros(total, np.uint8)
         pdim = 2 if planar else 3
         scan_points = buf[o_points:o_times].view(np.int16).reshape(c, n, pdim)
         scan_meta = buf[o_meta:o_imu].view(np.float32).reshape(c, 8)
+        imu_input = buf[o_imu:o_odom].view(np.float32).reshape(c, m, 8)
+        odom_input = (
+            buf[o_odom:].view(np.float32).reshape(c, mo, 9) if use_odom else None
+        )
         scan_times = None if linear else buf[o_times:o_meta].reshape(c, n)
         last_t = 0.0
         for i, (s, row) in enumerate(zip(scans, rows)):
@@ -402,6 +457,17 @@ class ChunkedLocalTrajectoryBuilder2D:
             scan_meta[i, 5] = row["t0"]
             scan_meta[i, 6] = row["span"]
             scan_meta[i, 7] = row["zc"]
+            for j, d in enumerate(s["imu"]):
+                imu_input[i, j, 0] = d.time - new_epoch
+                imu_input[i, j, 1:4] = d.linear_acceleration
+                imu_input[i, j, 4:7] = d.angular_velocity
+                imu_input[i, j, 7] = 1.0
+            if odom_input is not None:
+                for j, d in enumerate(s["odom"]):
+                    odom_input[i, j, 0] = d.time - new_epoch
+                    odom_input[i, j, 1:4] = d.pose[:3]
+                    odom_input[i, j, 4:8] = d.pose[3:7]
+                    odom_input[i, j, 8] = 1.0
             last_t = scan_meta[i, 0]
         for i in range(len(scans), c):
             # Padding scans: no valid points -> matched False, state frozen.

@@ -18,9 +18,10 @@ while this chunk's refinement is assembled and launched.
 
 In this port "auto" means "native": the JAX package falls back to the
 device search when the C++ library does not build, and this port has no
-such fallback — a failed build raises. TSDF submaps (which the JAX
-package refines one by one with match_tsdf) are not ported yet and
-raise.
+such fallback — a failed build raises. TSDF submaps have no log-odds
+table for the native search or the batched refinement: as in the JAX
+package, their searches take the device path even under "native", and
+their matches are refined one by one through CeresScanMatcher2D.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from cartographer_tpu_torch.common.histogram import Histogram
 from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.mapping.grid_2d import Grid2D
 from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+from cartographer_tpu_torch.mapping.scan_matching_2d import CeresScanMatcher2D
+from cartographer_tpu_torch.mapping.tsdf_2d import TSDF2D
 from cartographer_tpu_torch.mapping.trajectory_node import TrajectoryNodeData
 from cartographer_tpu_torch.ops.scan_matching.fast_correlative_2d import (
     FastCorrelativeScanMatcher2D,
@@ -82,13 +85,6 @@ class _PendingSearch:
     initial_relative_pose: Optional[np.ndarray]  # None => global (full submap)
 
 
-def _require_probability_grid(grid) -> None:
-    if not isinstance(grid, Grid2D):
-        raise NotImplementedError(
-            "ConstraintBuilder2D: TSDF submaps are not ported yet"
-        )
-
-
 class ConstraintBuilder2D:
     # Searches per pipeline stage of the native backend.
     _DRAIN_CHUNK = 256
@@ -101,6 +97,7 @@ class ConstraintBuilder2D:
             )
         self._options = options
         self._device = resolve_device(device)
+        self._ceres_matcher = CeresScanMatcher2D(options.ceres_scan_matcher)
         self._samplers: Dict[SubmapId, FixedRatioSampler] = {}
         self._matchers: Dict[SubmapId, FastCorrelativeScanMatcher2D] = {}
         self._submap_grids: Dict[SubmapId, Grid2D] = {}
@@ -139,10 +136,16 @@ class ConstraintBuilder2D:
             )
         return self._matchers[submap_id]
 
-    def _grid_on_device(self, grid: Grid2D) -> Grid2D:
-        _require_probability_grid(grid)
-        if grid.log_odds.device == self._device:
+    def _grid_on_device(self, grid):
+        if grid.origin.device == self._device:
             return grid
+        if isinstance(grid, TSDF2D):
+            return dataclasses.replace(
+                grid,
+                tsd=grid.tsd.to(self._device),
+                weight=grid.weight.to(self._device),
+                origin=grid.origin.to(self._device),
+            )
         return Grid2D(
             log_odds=grid.log_odds.to(self._device),
             known=grid.known.to(self._device),
@@ -208,20 +211,31 @@ class ConstraintBuilder2D:
 
         t0 = _time.perf_counter()
         use_native = self._use_native_backend()
+        # The native search reads log-odds probability pyramids; TSDF
+        # submaps have no log-odds table, so their searches take the device
+        # path even under "native" (a mixed drain splits).
         if use_native:
-            chunks = [
-                pending[c0: c0 + self._DRAIN_CHUNK]
-                for c0 in range(0, len(pending), self._DRAIN_CHUNK)
-            ]
+            is_tsdf = [isinstance(self._submap_grids[s.submap_id], TSDF2D) for s in pending]
+            native_pending = [s for s, t in zip(pending, is_tsdf) if not t]
+            device_pending = [s for s, t in zip(pending, is_tsdf) if t]
         else:
-            chunks = [pending]  # the device search batches lanes itself
+            native_pending, device_pending = [], pending
+        # Native chunks first (they drive the search worker), then one
+        # device chunk: the device search batches lanes itself.
+        chunks = [
+            ("native", native_pending[c0: c0 + self._DRAIN_CHUNK])
+            for c0 in range(0, len(native_pending), self._DRAIN_CHUNK)
+        ]
+        n_native_chunks = len(chunks)
+        if device_pending:
+            chunks.append(("device", device_pending))
         t_search = t_refine_dispatch = t_refine_wait = 0.0
         # Native path: the C++ search releases the GIL, so chunk k+1's
         # threaded search runs on a worker thread WHILE this thread decodes
         # chunk k and launches its refinement — only where the host has
         # cores to spare (on fewer than 4 the assembly thread would take
         # cycles from the search threads).
-        use_worker = use_native and (os.cpu_count() or 1) >= 4
+        use_worker = n_native_chunks > 0 and (os.cpu_count() or 1) >= 4
         future = None
         if use_worker:
             from cartographer_tpu_torch.native import bnb as native_bnb
@@ -231,20 +245,23 @@ class ConstraintBuilder2D:
                     max_workers=1, thread_name_prefix="bnb-search"
                 )
             ts = _time.perf_counter()
-            prep = self._prepare_native(chunks[0])
+            prep = self._prepare_native(chunks[0][1])
             future = self._search_pool.submit(
                 native_bnb.match_batch, prep["pyramids"], prep["clouds"], prep["params"]
             )
             t_search += _time.perf_counter() - ts
-        staged = []  # (searches with a match, results, refined rows or None)
-        for ci, chunk in enumerate(chunks):
+        # Per chunk: [(search, refined pose or None)], the batched jobs as
+        # (index into that list, search, BnB result), their device rows.
+        staged = []
+        num_matches = 0
+        for ci, (kind, chunk) in enumerate(chunks):
             ts = _time.perf_counter()
-            if not use_native:
+            if kind == "device":
                 decoded = self._run_searches_device(chunk)
             elif use_worker:
                 out_rows, found = future.result()
-                if ci + 1 < len(chunks):
-                    prep = self._prepare_native(chunks[ci + 1])
+                if ci + 1 < n_native_chunks:
+                    prep = self._prepare_native(chunks[ci + 1][1])
                     future = self._search_pool.submit(
                         native_bnb.match_batch,
                         prep["pyramids"], prep["clouds"], prep["params"],
@@ -253,32 +270,50 @@ class ConstraintBuilder2D:
             else:
                 decoded = self._run_searches_native(chunk)
             t_search += _time.perf_counter() - ts
-            jobs = [(search, result) for search, result in decoded if result is not None]
-            for _, result in jobs:
+            refine = []
+            jobs = []
+            for search, result in decoded:
+                if result is None:
+                    continue
                 self._score_histogram.add(result.score)
                 metrics.constraint_scores.observe(result.score)
+                grid = self._submap_grids[search.submap_id]
+                if isinstance(grid, TSDF2D):  # refined one by one
+                    cloud = search.constant_data.filtered_gravity_aligned_point_cloud
+                    pose, _ = self._ceres_matcher.match(
+                        result.pose[:2], result.pose, cloud, grid
+                    )
+                    refine.append((search, pose))
+                    continue
+                jobs.append((len(refine), search, result))
+                refine.append((search, None))
+            num_matches += len(refine)
             rows = None
             if jobs:
                 tr = _time.perf_counter()
-                rows = self._batch_refine_dispatch(jobs)
+                rows = self._batch_refine_dispatch([(s, r) for _, s, r in jobs])
                 t_refine_dispatch += _time.perf_counter() - tr
-            staged.append((jobs, rows))
+            staged.append((refine, jobs, rows))
 
         results: List[Constraint] = []
         tw, rw = (
             self._options.loop_closure_translation_weight,
             self._options.loop_closure_rotation_weight,
         )
-        for jobs, rows in staged:
-            if not jobs:
+        for refine, jobs, rows in staged:
+            if rows is not None:
+                tf = _time.perf_counter()
+                poses = rows[: len(jobs), :3].cpu().numpy().astype(np.float64)
+                t_refine_wait += _time.perf_counter() - tf
+                poses[:, 2] = rigid2.normalize_angle(poses[:, 2])
+                for (i, _, _), pose in zip(jobs, poses):
+                    refine[i] = (refine[i][0], pose)
+            if not refine:
                 continue
-            tf = _time.perf_counter()
-            poses = rows[: len(jobs), :3].cpu().numpy().astype(np.float64)
-            t_refine_wait += _time.perf_counter() - tf
-            poses[:, 2] = rigid2.normalize_angle(poses[:, 2])
+            poses = np.stack([pose for _, pose in refine]).astype(np.float64)
             # Vectorized zbar = inverse(submap_local_pose) o refined_pose.
             sub = np.stack(
-                [self._submap_local_pose(search.submap_id) for search, _ in jobs]
+                [self._submap_local_pose(search.submap_id) for search, _ in refine]
             ).astype(np.float64)
             ct, st = np.cos(-sub[:, 2]), np.sin(-sub[:, 2])
             dx = poses[:, 0] - sub[:, 0]
@@ -286,7 +321,7 @@ class ConstraintBuilder2D:
             zx = ct * dx - st * dy
             zy = st * dx + ct * dy
             zt = rigid2.normalize_angle(poses[:, 2] - sub[:, 2])
-            for (search, _), x, y, t in zip(jobs, zx, zy, zt):
+            for (search, _), x, y, t in zip(refine, zx, zy, zt):
                 results.append(
                     Constraint(
                         submap_id=search.submap_id,
@@ -302,7 +337,7 @@ class ConstraintBuilder2D:
         metrics.constraints_found.increment(len(results))
         self.last_drain_timings = {
             "searches": len(pending),
-            "matches": sum(len(jobs) for jobs, _ in staged),
+            "matches": num_matches,
             "search_s": t_search,
             "refine_dispatch_s": t_refine_dispatch,
             "refine_wait_s": t_refine_wait,

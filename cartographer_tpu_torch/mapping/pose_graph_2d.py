@@ -13,8 +13,9 @@ package, at most one drain runs at a time: the check-and-set of the
 pending drain task happens under the work lock, and every call into the
 constraint builder's run_pending holds `_drain_lock`, so an inline drain
 (finish_trajectory, run_final_optimization) waits for a pool drain
-instead of racing it over the same queued searches. Trimmers are not
-ported yet: configuring one raises.
+instead of racing it over the same queued searches. Trimmers
+(`overlapping_submaps_trimmer_2d`, or any added with `add_trimmer`) run
+after every optimization through `TrimmingHandle`.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from cartographer_tpu_torch.mapping.optimization_problem_2d import (
 )
 from cartographer_tpu_torch.mapping.submap_2d import Submap2D, submap_from_numpy
 from cartographer_tpu_torch.mapping.trajectory_node import TrajectoryNode, TrajectoryNodeData
+from cartographer_tpu_torch.mapping.trimmers import OverlappingSubmapsTrimmer2D
 from cartographer_tpu_torch.sensor.data import FixedFramePoseData, ImuData, OdometryData
 from cartographer_tpu_torch.transform import rigid2, rigid3
 
@@ -78,11 +80,6 @@ class PoseGraph2D:
         DrainWorkQueue:520-544); otherwise draining is inline and
         deterministic. `device=None` means CUDA; pass device="cpu" to run
         the searches, refinements and solves on the CPU."""
-        if options.overlapping_submaps_trimmer_2d is not None:
-            raise NotImplementedError(
-                "PoseGraph2D: overlapping_submaps_trimmer_2d (trimmers) is "
-                "not ported yet"
-            )
         self._options = options
         self._thread_pool = thread_pool
         self._work_lock = threading.RLock()
@@ -102,6 +99,16 @@ class PoseGraph2D:
         self._connectivity = TrajectoryConnectivityState()
         self._global_localization_samplers: Dict[int, FixedRatioSampler] = {}
         self._num_nodes_since_last_loop_closure = 0
+        self._trimmers: List = []
+        if options.overlapping_submaps_trimmer_2d is not None:
+            t = options.overlapping_submaps_trimmer_2d
+            self._trimmers.append(
+                OverlappingSubmapsTrimmer2D(
+                    t.fresh_submaps_count,
+                    t.min_covered_area,
+                    t.min_added_submaps_count,
+                )
+            )
         self._initial_trajectory_poses: Dict[int, tuple] = {}
         self._landmark_nodes: Dict[str, dict] = {}
         self._global_slam_optimization_callback = None
@@ -253,7 +260,8 @@ class PoseGraph2D:
                     self._optimization_problem.trim_trajectory_node(node_id)
 
     def add_trimmer(self, trimmer) -> None:
-        raise NotImplementedError("PoseGraph2D: trimmers are not ported yet")
+        with self._work_lock:
+            self._trimmers.append(trimmer)
 
     def finish_trajectory(self, trajectory_id: int) -> None:
         self.wait_for_all_computations()
@@ -609,6 +617,10 @@ class PoseGraph2D:
     def _finish_work_queue(self) -> None:
         self.run_optimization()
         self._num_nodes_since_last_loop_closure = 0
+        for trimmer in list(self._trimmers):
+            trimmer.trim(TrimmingHandle(self))
+            if trimmer.is_finished():
+                self._trimmers.remove(trimmer)
 
     def run_optimization(self) -> None:
         if self._optimization_problem.node_data.empty():
@@ -666,6 +678,67 @@ class PoseGraph2D:
                 if items:
                     last_nodes[tid] = NodeId(tid, items[-1][0])
             self._global_slam_optimization_callback(last_submaps, last_nodes)
+
+
+class TrimmingHandle:
+    """Reference Trimmable interface (pose_graph_trimmer.h / TrimmingHandle)."""
+
+    def __init__(self, pose_graph: PoseGraph2D):
+        self._pose_graph = pose_graph
+
+    def num_submaps(self, trajectory_id: int) -> int:
+        return self._pose_graph._submap_data.size_of_trajectory_or_zero(trajectory_id)
+
+    def get_submap_ids(self, trajectory_id: int) -> List[SubmapId]:
+        return [
+            SubmapId(trajectory_id, i)
+            for i, _ in self._pose_graph._submap_data.trajectory(trajectory_id)
+        ]
+
+    def get_optimized_submap_data(self):
+        """FINISHED submaps with their optimized global poses, as
+        (submap_id, submap, global_pose_2d) tuples
+        (TrimmingHandle::GetOptimizedSubmapData)."""
+        out = []
+        pg = self._pose_graph
+        for sid, data in pg._submap_data.items(SubmapId):
+            if data.state != SubmapState.FINISHED:
+                continue
+            spec = pg._optimization_problem.submap_data.get(sid)
+            if spec is None:
+                continue
+            out.append((sid, data.submap, np.asarray(spec.global_pose)))
+        return out
+
+    def trim_submap(self, submap_id: SubmapId) -> None:
+        """pose_graph_2d.cc TrimmingHandle::TrimSubmap: drop the submap, its
+        constraints, and the nodes only connected to it, and evict the
+        constraint builder's caches of the submap (queued searches against
+        it are dropped at the next drain)."""
+        pg = self._pose_graph
+        if pg._submap_data.at(submap_id).state != SubmapState.FINISHED:
+            raise ValueError(f"trim_submap: {submap_id} is not finished")
+        # Constraints to keep: those not referring to this submap.
+        constraints = [c for c in pg._constraints if c.submap_id != submap_id]
+        # Nodes still constrained by other submaps.
+        nodes_with_constraints = {c.node_id for c in constraints}
+        orphaned = [
+            n
+            for n in pg._submap_data.at(submap_id).node_ids
+            if n not in nodes_with_constraints
+        ]
+        constraints = [c for c in constraints if c.node_id not in orphaned]
+        pg._constraints = constraints
+        pg._submap_data.trim(submap_id)
+        pg._optimization_problem.trim_submap(submap_id)
+        cb = pg._constraint_builder
+        for cache in (
+            cb._matchers, cb._submap_grids, cb._native_pyramids, cb._native_origins,
+        ):
+            cache.pop(submap_id, None)
+        for node_id in orphaned:
+            pg._trajectory_nodes.trim(node_id)
+            pg._optimization_problem.trim_trajectory_node(node_id)
 
 
 def replay_nodes(pose_graph: PoseGraph2D, trajectory_id: int, records, submaps, device):

@@ -16,9 +16,9 @@ value leaves the device: every data-dependent branch is a `torch.where`,
 so the loop never waits on the card. The packed uint8 input and output
 layouts are the JAX package's, so one buffer feeds both implementations.
 
-Scope of this port: no IMU and no odometry (`run_chunk` raises
-NotImplementedError for either), the direct-gather LM matcher
-(`use_band_matcher=False`), and the full no-IMU state, so a JAX
+Scope of this port: IMU and odometry fusion on or off, the direct-gather
+LM matcher (`use_band_matcher=False`; the JAX package's band matcher is a
+TPU formulation of the same residuals), and the full state, so a JAX
 `FrontendState2D` carries across with `state_from_numpy`.
 """
 
@@ -70,7 +70,7 @@ class FrontendState2D:
     tracker_last_acc_t: torch.Tensor  # f32; -1e30 = never observed
     # Extrapolation frontier (get_last_extrapolated_time()).
     last_extrap_t: torch.Tensor
-    # Odometry queue (ODO_RING slots); unused until odometry is ported.
+    # Odometry queue (ODO_RING slots) and the odometry tracker copy.
     odo_t: torch.Tensor  # f32 [K]
     odo_xyz: torch.Tensor  # f32 [K, 3]
     odo_q: torch.Tensor  # f32 [K, 4]
@@ -223,11 +223,11 @@ class FrontendConfig2D:
     # Static bound on the matching cloud handed to the LM matcher (excess
     # adaptive-filtered points are dropped from matching only).
     match_max_points: int = 512
-    # IMU fusion (not ported yet: run_chunk raises when True).
+    # IMU fusion (the ImuTracker fold over the scan's samples).
     use_imu: bool = False
     imu_gravity_time_constant: float = 10.0
     max_imu_per_scan: int = 16
-    # Odometry fusion (not ported yet: run_chunk raises when True).
+    # Odometry fusion (the odometry queue fold before each scan).
     use_odometry: bool = False
     max_odom_per_scan: int = 4
     # Online correlative pre-match before the LM refinement; rtcsm_a_cap
@@ -298,12 +298,93 @@ def point_quantization_scale(cfg: FrontendConfig2D) -> float:
     return bound / 32767.0
 
 
+def _odometry_fold(cfg: FrontendConfig2D, state: FrontendState2D, odom):
+    """Consume the scan's odometry samples in order: ring append,
+    endpoint velocity updates, and the odometry tracker's rotation
+    extrapolation (PoseExtrapolator::AddOdometryData,
+    pose_extrapolator.cc:100-135; no-IMU fake-gravity tracker advance,
+    :201-210). The JAX `lax.scan` over the Mo slots is a Python loop of
+    selects. Returns the updated state."""
+    odo_ts, odo_xyzs, odo_qs, odo_valid = odom  # [Mo], [Mo,3], [Mo,4], [Mo]
+    k = ODO_RING
+    dev = odo_ts.device
+    ring = torch.arange(k, dtype=torch.int32, device=dev)
+    # On overflow drop the SECOND-oldest (both endpoints — queue front and
+    # latest — stay exact): gather slots 0, 2, 3, ..., k-1, k-1.
+    shift_full = torch.clamp(
+        torch.cat([ring[:1], torch.arange(2, k + 1, dtype=torch.int32, device=dev)]),
+        max=k - 1,
+    ).long()
+    ez = fc._unit_z(state.tracker_grav)
+    t, xyz, q, length = state.odo_t, state.odo_xyz, state.odo_q, state.odo_len
+    lin_v, ang_v = state.lin_vel_odo, state.ang_vel_odo
+    trk_ori, trk_grav = state.odo_trk_ori, state.odo_trk_grav
+    trk_om, trk_t, trk_la = (
+        state.odo_trk_omega, state.odo_trk_t, state.odo_trk_last_acc_t,
+    )
+    for i in range(odo_ts.shape[0]):
+        t_o, xyz_o, q_o, valid = odo_ts[i], odo_xyzs[i], odo_qs[i], odo_valid[i]
+        full = length >= k
+        shift = torch.where(full, shift_full, ring.long())
+        t2, xyz2, q2 = t[shift], xyz[shift], q[shift]
+        at_w = ring == torch.clamp(length, max=k - 1)
+        t2 = torch.where(at_w, t_o, t2)
+        xyz2 = torch.where(at_w[:, None], xyz_o[None, :], xyz2)
+        q2 = torch.where(at_w[:, None], q_o[None, :], q2)
+        len2 = torch.clamp(length + 1, max=k)
+
+        # Endpoint velocities (oldest = slot 0, newest = just written).
+        have2 = len2 >= 2
+        dt = t2[0] - t_o  # negative
+        safe_dt = torch.where(torch.abs(dt) < 1e-9, -1e-9, dt)
+        q_delta = fc.qnorm(fc.qmul(fc.qconj(q_o), q2[0]))
+        ang_new = fc.qlog(q_delta) / safe_dt
+        lin_tracking = fc.qrot(fc.qconj(q_o)[None], (xyz2[0] - xyz_o)[None])[0] / safe_dt
+        # Advance the odometry tracker to the sample time. With IMU the
+        # tracker copy was synced to the gyro-fed main tracker at the last
+        # add_pose; it advances with the latest gyro rate and WITHOUT
+        # fake-gravity observations (pose_extrapolator.cc:201-222).
+        # Without IMU: fake gravity + odometry/pose angular velocity.
+        if cfg.use_imu:
+            om_used = trk_om
+        else:
+            om_used = torch.where(have2, ang_new, state.ang_vel)
+        to_t = torch.maximum(t_o, trk_t)
+        t1, ori1, grav1 = fc.tracker_advance(trk_t, trk_ori, trk_grav, om_used, to_t)
+        if cfg.use_imu:
+            ori2, grav2, la1 = ori1, grav1, trk_la
+        else:
+            ori2, grav2, la1 = fc.tracker_acc_obs(cfg, t1, ori1, grav1, trk_la, ez)
+        # Orientation at the newest odometry time = newest_pose.q *
+        # (conj(main tracker ori) * odometry tracker ori).
+        rot = fc.qmul(fc.qconj(state.tracker_ori), ori2)
+        ori_at_odo = fc.qnorm(fc.qmul(state.newest_q, rot))
+        lin_new = fc.qrot(ori_at_odo[None], lin_tracking[None])[0]
+
+        def sel(a, b):
+            return torch.where(valid, a, b)
+
+        t, xyz, q, length = sel(t2, t), sel(xyz2, xyz), sel(q2, q), sel(len2, length)
+        lin_v = torch.where(valid & have2, lin_new, lin_v)
+        ang_v = torch.where(valid & have2, ang_new, ang_v)
+        trk_ori, trk_grav = sel(ori2, trk_ori), sel(grav2, trk_grav)
+        trk_om, trk_t, trk_la = sel(om_used, trk_om), sel(t1, trk_t), sel(la1, trk_la)
+    return state.replace(
+        odo_t=t, odo_xyz=xyz, odo_q=q, odo_len=length,
+        lin_vel_odo=lin_v, ang_vel_odo=ang_v,
+        odo_trk_ori=trk_ori, odo_trk_grav=trk_grav,
+        odo_trk_omega=trk_om, odo_trk_t=trk_t, odo_trk_last_acc_t=trk_la,
+    )
+
+
 def _scan_body(cfg: FrontendConfig2D, state: FrontendState2D, fin: dict, x):
-    points, pmask, ptimes, t_scan, sensor_origin, imu = x
+    points, pmask, ptimes, t_scan, sensor_origin, imu, odom = x
     dev = points.device
     half = 0.5 * cfg.grid_size * cfg.resolution
-    # Velocity source selection (odometry once two samples are queued —
-    # never, until odometry is ported; kept so the state reads alike).
+    if cfg.use_odometry:
+        state = _odometry_fold(cfg, state, odom)
+    # Velocity source selection (extrapolate_pose /
+    # _extrapolate_translation): odometry once two samples are queued.
     have_odo = state.odo_len >= 2
     vel_used = torch.where(have_odo, state.lin_vel_odo, state.vel)
     ang_used = torch.where(have_odo, state.ang_vel_odo, state.ang_vel)
@@ -468,8 +549,14 @@ def _scan_body(cfg: FrontendConfig2D, state: FrontendState2D, fin: dict, x):
 
     # Without IMU, the tracker's next integration uses the UPDATED
     # pose-derived angular velocity (pose_extrapolator.cc AddPose advances
-    # after UpdateVelocitiesFromPoses).
-    trk_om_stored = ang_new
+    # after UpdateVelocitiesFromPoses) — or the odometry-derived one once
+    # two odometry samples are queued.
+    if cfg.use_imu:
+        trk_om_stored = trk_om
+    elif cfg.use_odometry:
+        trk_om_stored = torch.where(have_odo, state.ang_vel_odo, ang_new)
+    else:
+        trk_om_stored = ang_new
     state = state.replace(
         older_t=upd(state.older_t, state.newest_t),
         older_xyz=upd(state.older_xyz, state.newest_xyz),
@@ -486,6 +573,34 @@ def _scan_body(cfg: FrontendConfig2D, state: FrontendState2D, fin: dict, x):
         tracker_last_acc_t=upd(state.tracker_last_acc_t, trk_la),
         last_extrap_t=torch.where(active, pt[-1], state.last_extrap_t),
     )
+
+    if cfg.use_odometry:
+        # add_pose also trims the odometry queue (closed-form pop count
+        # for monotone times) and re-copies the tracker
+        # (odometry_imu_tracker_ = imu_tracker_).
+        ring = torch.arange(ODO_RING, dtype=torch.int32, device=dev)
+        le = torch.sum(
+            (
+                (state.odo_t <= t_scan) & (ring >= 1) & (ring < state.odo_len)
+            ).to(torch.int32)
+        )
+        pops = torch.where(
+            matched,
+            torch.minimum(le, torch.clamp(state.odo_len - 2, min=0)),
+            0,
+        ).to(torch.int32)
+        sidx = torch.clamp(ring + pops, max=ODO_RING - 1).long()
+        state = state.replace(
+            odo_t=state.odo_t[sidx],
+            odo_xyz=state.odo_xyz[sidx],
+            odo_q=state.odo_q[sidx],
+            odo_len=state.odo_len - pops,
+            odo_trk_ori=upd(state.odo_trk_ori, trk_ori),
+            odo_trk_grav=upd(state.odo_trk_grav, trk_grav),
+            odo_trk_omega=upd(state.odo_trk_omega, trk_om_stored),
+            odo_trk_t=upd(state.odo_trk_t, t_scan),
+            odo_trk_last_acc_t=upd(state.odo_trk_last_acc_t, trk_la),
+        )
 
     # -- motion filter (on the SE(3) pose estimate) ----------------------------
     similar = (
@@ -640,10 +755,6 @@ def _scan_body(cfg: FrontendConfig2D, state: FrontendState2D, fin: dict, x):
 
 
 def _check_supported(cfg: FrontendConfig2D) -> None:
-    if cfg.use_imu:
-        raise NotImplementedError("run_chunk: use_imu=True is not ported yet")
-    if cfg.use_odometry:
-        raise NotImplementedError("run_chunk: use_odometry=True is not ported yet")
     if cfg.use_band_matcher:
         raise NotImplementedError(
             "run_chunk: the TPU band matcher is not ported; "
@@ -665,7 +776,9 @@ def run_chunk(
     (input_layout(cfg) gives the section offsets: points i16 [C,N,3]
     quantized by point_quantization_scale, per-point times u8 fractions
     of the scan's [t0, t0+span], meta f32 [C,8] = (t_scan, origin xyz,
-    count, t0, span, planar z), IMU f32 [C,M,8]).
+    count, t0, span, planar z), IMU f32 [C,M,8] = (time, acc xyz, gyro
+    xyz, valid), and under use_odometry odometry f32 [C,Mo,9] = (time,
+    xyz, quat wxyz, valid)).
 
     Returns (state, fin, out_points, packed_out), as the JAX function:
       fin: the ring of submaps finished in this chunk ({count, lo, known,
@@ -743,12 +856,23 @@ def run_chunk(
         imu_input[:, :, 4:7],
         imu_input[:, :, 7] > 0.5,
     )
+    if cfg.use_odometry:
+        odom_input = packed[o_odom:total].view(torch.float32).reshape(
+            c, cfg.max_odom_per_scan, 9
+        )
+        odom = (
+            odom_input[:, :, 0],
+            odom_input[:, :, 1:4],
+            odom_input[:, :, 4:8],
+            odom_input[:, :, 8] > 0.5,
+        )
 
     per_scan = []
     for i in range(c):
         x = (
             points[i], pmask[i], ptimes[i], t_scan[i], sensor_origin[i],
             tuple(a[i] for a in imu),
+            tuple(a[i] for a in odom) if cfg.use_odometry else None,
         )
         state, fin, out = _scan_body(cfg, state, fin, x)
         per_scan.append(out)

@@ -1,7 +1,9 @@
 """Ray-cast range-data insertion into 2D probability grids.
 
-Port of `insert_scan_dense` and its bitmask rasterizer from
-cartographer_tpu/ops/raycast_2d.py:157-264. Reference behavior:
+Port of `insert_scan` (the per-scan path's scatter inserter) and of
+`insert_scan_dense` with its bitmask rasterizer (the chunked frontend's)
+from cartographer_tpu/ops/raycast_2d.py:32-131 and :157-264. Reference
+behavior:
 mapping/2d/probability_grid_range_data_inserter_2d.cc:33-133 — per scan,
 each hit cell gets one odds(hit) update; every cell crossed by a ray from
 the origin to a hit (or to a missing-echo endpoint) gets one odds(miss)
@@ -10,8 +12,10 @@ update; hits take priority over misses in the same cell.
 For every (ray, grid row) pair the ray's supercover within that row is one
 contiguous column interval; each interval becomes packed 32-bit row masks
 and an OR over rays yields the miss grid. The OR runs over chunks of rays,
-so the [N, H, W/32] lattice is never held whole. All coordinates here are
-fractional cell units. The result is bit-identical to the JAX function.
+so the [N, H, W/32] lattice is never held whole. `insert_scan` instead
+scatters the two cells beside every integer boundary crossing of each ray
+(the exact supercover). All coordinates here are fractional cell units.
+Both results are bit-identical to the JAX functions.
 """
 
 from __future__ import annotations
@@ -22,6 +26,85 @@ from cartographer_tpu_torch.mapping import probability_values as pv
 
 # Int32 words per ray chunk of the [B, rays, H, W/32] lattice (16 MiB).
 _CHUNK_WORDS = 1 << 22
+
+
+def _scatter_true(grid_flat, ix, iy, sel, h: int, w: int):
+    """Set cells (iy, ix) where `sel` in a flat [h * w + 1] bool buffer;
+    unselected or off-grid cells go to the dummy cell h * w (the JAX
+    `.at[].set(..., mode="drop")` with sentinels)."""
+    sel = sel & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    flat = torch.where(sel, iy.long() * w + ix.long(), h * w)
+    return grid_flat.index_fill(0, flat.reshape(-1), True)
+
+
+def insert_scan(
+    log_odds,  # f32 [H, W]
+    known,  # bool [H, W]
+    origin_cell,  # f32 [2] (cx, cy)
+    ends_cell,  # f32 [N, 2] hit + missing-echo endpoints
+    is_hit,  # bool [N]
+    valid,  # bool [N] padding mask
+    hit_log_odds: float,
+    miss_log_odds: float,
+    num_steps: int,
+    insert_free_space: bool = True,
+):
+    """One range-data insertion (the exact-supercover scatter of the JAX
+    `insert_scan`): hit cells get one hit update, every cell a ray passes
+    through one miss update, hits win. `num_steps` bounds the integer
+    boundary crossings per axis. Returns (log_odds', known')."""
+    h, w = log_odds.shape
+    dev = log_odds.device
+    end_ix = torch.floor(ends_cell[:, 0]).to(torch.int32)
+    end_iy = torch.floor(ends_cell[:, 1]).to(torch.int32)
+    empty = torch.zeros(h * w + 1, dtype=torch.bool, device=dev)
+    hit_flat = _scatter_true(empty, end_ix, end_iy, valid & is_hit, h, w)
+    hit_grid = hit_flat[: h * w].reshape(h, w)
+
+    if insert_free_space:
+        delta = ends_cell - origin_cell[None, :]  # [N, 2]
+        steps = torch.arange(num_steps, dtype=torch.float32, device=dev)
+        miss_flat = empty
+        for axis in (0, 1):
+            # Cells adjacent to the integer crossings along `axis`.
+            o, o_other = origin_cell[axis], origin_cell[1 - axis]
+            d, d_other = delta[:, axis], delta[:, 1 - axis]
+            step = torch.where(d >= 0, 1.0, -1.0)
+            first = torch.where(d >= 0, torch.floor(o) + 1.0, torch.ceil(o) - 1.0)
+            ks = first[:, None] + step[:, None] * steps[None, :]  # [N, S]
+            safe_d = torch.where(torch.abs(d) < 1e-9, 1e-9, d)
+            ts = (ks - o) / safe_d[:, None]
+            t_valid = (ts > 0.0) & (ts <= 1.0) & (torch.abs(d) > 1e-9)[:, None]
+            other = o_other + ts * d_other[:, None]
+            fo = torch.floor(other).to(torch.int32)
+            ki = ks.to(torch.int32)
+            sel = t_valid & valid[:, None]
+            if axis == 0:
+                miss_flat = _scatter_true(miss_flat, ki - 1, fo, sel, h, w)
+                miss_flat = _scatter_true(miss_flat, ki, fo, sel, h, w)
+            else:
+                miss_flat = _scatter_true(miss_flat, fo, ki - 1, sel, h, w)
+                miss_flat = _scatter_true(miss_flat, fo, ki, sel, h, w)
+        # Start cell (shared by all rays) and end cells.
+        oix = torch.floor(origin_cell[0]).to(torch.int32).reshape(1)
+        oiy = torch.floor(origin_cell[1]).to(torch.int32).reshape(1)
+        every = torch.ones(1, dtype=torch.bool, device=dev)
+        miss_flat = _scatter_true(miss_flat, oix, oiy, every, h, w)
+        miss_flat = _scatter_true(miss_flat, end_ix, end_iy, valid, h, w)
+        miss_grid = miss_flat[: h * w].reshape(h, w) & ~hit_grid
+    else:
+        miss_grid = torch.zeros_like(hit_grid)
+
+    update = torch.where(
+        hit_grid, hit_log_odds, torch.where(miss_grid, miss_log_odds, 0.0)
+    )
+    touched = hit_grid | miss_grid
+    new_log_odds = torch.where(
+        touched,
+        torch.clamp(log_odds + update, pv.MIN_LOG_ODDS, pv.MAX_LOG_ODDS),
+        log_odds,
+    )
+    return new_log_odds, known | touched
 
 
 def _or_reduce_rays(words):

@@ -1,7 +1,8 @@
 """Scan-match refinement: Levenberg-Marquardt on the device.
 
-Port of `match`, `match_log_odds`, `match_log_odds_batch_packed` and their
-helpers from cartographer_tpu/ops/scan_matching/gauss_newton_2d.py.
+Port of `match`, `match_log_odds`, `match_log_odds_batch_packed`,
+`match_tsdf` and their helpers from
+cartographer_tpu/ops/scan_matching/gauss_newton_2d.py.
 Reference: internal/2d/scan_matching/ceres_scan_matcher_2d.cc:53-107 with
 residuals from occupied_space_cost_function_2d.cc:30-117 (bicubic-
 interpolated correspondence cost per point, scaled by
@@ -311,6 +312,175 @@ def match_lanes(
         )
         if use_nonmonotonic_steps:
             ev = new_ev
+        done = done | converged
+    return pose, cost
+
+
+def interp_bilinear_tsdf(tsd, weight, u, v, max_cost: float, with_gradient: bool = False):
+    """Bilinear TSD + weight interpolation; any zero-weight corner yields
+    (max_cost with zero gradient, weight 0) — InterpolatedTSDF2D
+    semantics. Cells off the grid read (max_cost, 0). With
+    `with_gradient`, also returns the (u, v) derivatives of both as
+    (dcost_du, dcost_dv, dwt_du, dwt_dv)."""
+    h, w = tsd.shape
+    iu = torch.floor(u).to(torch.int32)
+    iv = torch.floor(v).to(torch.int32)
+    tu = u - iu.to(u.dtype)
+    tv = v - iv.to(v.dtype)
+
+    def corner(grid, dy, dx, fill):
+        rows = iv + dy
+        cols = iu + dx
+        oob = (rows < 0) | (rows >= h) | (cols < 0) | (cols >= w)
+        flat = rows.clamp(0, h - 1).long() * w + cols.clamp(0, w - 1).long()
+        return torch.where(oob, fill, grid.reshape(-1)[flat])
+
+    q11 = corner(tsd, 0, 0, max_cost)
+    q12 = corner(tsd, 0, 1, max_cost)
+    q21 = corner(tsd, 1, 0, max_cost)
+    q22 = corner(tsd, 1, 1, max_cost)
+    w11 = corner(weight, 0, 0, 0.0)
+    w12 = corner(weight, 0, 1, 0.0)
+    w21 = corner(weight, 1, 0, 0.0)
+    w22 = corner(weight, 1, 1, 0.0)
+    cost = (
+        q11 * (1 - tu) * (1 - tv)
+        + q12 * tu * (1 - tv)
+        + q21 * (1 - tu) * tv
+        + q22 * tu * tv
+    )
+    wt = (
+        w11 * (1 - tu) * (1 - tv)
+        + w12 * tu * (1 - tv)
+        + w21 * (1 - tu) * tv
+        + w22 * tu * tv
+    )
+    known = (w11 != 0) & (w12 != 0) & (w21 != 0) & (w22 != 0)
+    cost = torch.where(known, cost, max_cost)
+    wt = torch.where(known, wt, 0.0)
+    if not with_gradient:
+        return cost, wt
+
+    def d(q11, q12, q21, q22):
+        du = (q12 - q11) * (1 - tv) + (q22 - q21) * tv
+        dv = (q21 - q11) * (1 - tu) + (q22 - q12) * tu
+        return torch.where(known, du, 0.0), torch.where(known, dv, 0.0)
+
+    return (cost, wt, *d(q11, q12, q21, q22), *d(w11, w12, w21, w22))
+
+
+def match_tsdf(
+    tsd,  # f32 [H, W]
+    weight,  # f32 [H, W]
+    origin,  # f32 [2]
+    initial_pose,  # f32 [3]
+    target_translation,  # f32 [2]
+    points,  # f32 [N, 2]
+    point_mask,  # bool [N]
+    resolution: float,
+    truncation_distance: float,
+    occupied_space_weight: float,
+    translation_weight: float,
+    rotation_weight: float,
+    max_iterations: int = 20,
+    use_nonmonotonic_steps: bool = False,
+):
+    """TSDF refinement (tsdf_match_cost_function_2d.cc: weight-normalized
+    interpolated TSD residuals + translation/rotation deltas); returns
+    (pose [3], final cost). The Jacobian that the JAX function takes with
+    jacfwd is written out (the weight normalization differentiated too);
+    its while_loop is `max_iterations` steps that freeze the carry once
+    converged, so nothing is read back to the host."""
+    dev = tsd.device
+    num_points = torch.clamp(torch.sum(point_mask), min=1).to(torch.float32)
+    scale = num_points * (occupied_space_weight / torch.sqrt(num_points))
+    initial_pose = initial_pose.to(torch.float32)
+    px, py = points[:, 0], points[:, 1]
+
+    def extra_res(pose):
+        return torch.cat(
+            [
+                translation_weight * (pose[:2] - target_translation),
+                rotation_weight * (pose[2:] - initial_pose[2:]),
+            ]
+        )
+
+    def residuals(pose, with_jacobian=False):
+        c, s = torch.cos(pose[2]), torch.sin(pose[2])
+        wx = c * px - s * py + pose[0]
+        wy = s * px + c * py + pose[1]
+        u = (wx - origin[0]) / resolution - 0.5
+        v = (wy - origin[1]) / resolution - 0.5
+        out = interp_bilinear_tsdf(tsd, weight, u, v, truncation_distance, with_jacobian)
+        cost, wt = out[0], torch.where(point_mask, out[1], 0.0)
+        total = torch.sum(wt)
+        summed = torch.clamp(total, min=1e-9)
+        occ = torch.where(point_mask, scale * cost * wt / summed, 0.0)
+        r = torch.cat([occ, extra_res(pose)])
+        if not with_jacobian:
+            return r
+        dcost_du, dcost_dv, dwt_du, dwt_dv = out[2:]
+        dwt_du = torch.where(point_mask, dwt_du, 0.0)
+        dwt_dv = torch.where(point_mask, dwt_dv, 0.0)
+        # d(u, v)/d(x, y, theta): u moves with x, v with y, both with theta.
+        du_dth = (-s * px - c * py) / resolution
+        dv_dth = (c * px - s * py) / resolution
+        inv_res = 1.0 / resolution
+
+        def d_pose(d_du, d_dv):  # [N] derivatives in u, v -> [N, 3]
+            return torch.stack(
+                [d_du * inv_res, d_dv * inv_res, d_du * du_dth + d_dv * dv_dth], dim=1
+            )
+
+        d_cost = d_pose(dcost_du, dcost_dv)
+        d_wt = d_pose(dwt_du, dwt_dv)
+        d_summed = torch.where(total > 1e-9, torch.sum(d_wt, dim=0), 0.0)  # [3]
+        d_occ = scale * (
+            (d_cost * wt[:, None] + cost[:, None] * d_wt) / summed
+            - (cost * wt)[:, None] * d_summed[None, :] / (summed * summed)
+        )
+        d_occ = torch.where(point_mask[:, None], d_occ, 0.0)
+        return r, torch.cat([d_occ, extra_jac], dim=0)
+
+    def cost_of(r):
+        return 0.5 * torch.sum(r * r)
+
+    extra_jac = torch.zeros((3, 3), dtype=torch.float32, device=dev)
+    extra_jac[0, 0] = translation_weight
+    extra_jac[1, 1] = translation_weight
+    extra_jac[2, 2] = rotation_weight
+    pose = initial_pose
+    cost = cost_of(residuals(pose))
+    lam = torch.full_like(cost, 1e-4)
+    done = torch.zeros_like(cost, dtype=torch.bool)
+    ev = nonmonotonic_init(cost)
+    for _ in range(max_iterations):
+        r, jac = residuals(pose, with_jacobian=True)
+        jtj = jac.T @ jac
+        jtr = jac.T @ r
+        damped = jtj + lam * torch.diag(torch.diagonal(jtj) + 1e-9)
+        delta = -solve_spd_small(damped, jtr)
+        new_pose = pose + delta
+        new_cost = cost_of(residuals(new_pose))
+        if use_nonmonotonic_steps:
+            model_cost_change = -(jtr @ delta + 0.5 * delta @ (jtj @ delta))
+            mcc = torch.clamp(model_cost_change, min=1e-30)
+            quality = nonmonotonic_quality(ev, cost, new_cost, mcc)
+            accept = (model_cost_change > 0.0) & (quality > 1e-3)
+            ev = nonmonotonic_accepted(ev, new_cost, mcc, accept & ~done)
+        else:
+            accept = new_cost < cost
+        # Ceres-style convergence: relative cost change below the
+        # function tolerance, or the trust region collapsed (lambda huge).
+        converged = (accept & (torch.abs(cost - new_cost) <= 1e-6 * cost)) | (
+            ~accept & (lam > 1e3)
+        )
+        step = accept & ~done
+        pose = torch.where(step, new_pose, pose)
+        cost = torch.where(step, new_cost, cost)
+        lam = torch.where(
+            done, lam, torch.where(accept, torch.clamp(lam * 0.5, min=1e-12), lam * 4.0)
+        )
         done = done | converged
     return pose, cost
 

@@ -26,8 +26,8 @@ exits non-zero:
    timed span, the frontend runs again up to the first window-sum call
    of the third chunk, whose inputs become the kernel phase's "real"
    case.
-5. backend: MapBuilder on cuda over one lap of bench.py's scaled world
-   (1000 scans of 1024 beams) with bench.py's backend settings and the
+5. backend: MapBuilder on cuda over half a lap of bench.py's scaled world
+   (500 scans of 1024 beams) with bench.py's backend settings and the
    asynchronous pose graph: the frontend, loop-closure searches through
    the device branch-and-bound, their batched LM refinement, SPA, and
    the final optimization. Launch counts from that run only, node error
@@ -35,7 +35,17 @@ exits non-zero:
    times, SPA times; then one drain's searches rerun on the CPU and
    through the native search, and the last SPA problem re-solved on the
    CPU.
-6. kernels: one line with every kernel's numbers (the main case).
+6. sensors: the slice's world with IMU at 100 Hz and odometry at 50 Hz
+   (made from the figure-eight's ground truth) through four paths on
+   cuda: the chunked frontend (300 scans; its first chunk rerun scan by
+   scan on the CPU), the per-scan LocalTrajectoryBuilder2D on a
+   probability grid (150 scans) and on a TSDF (100 scans), each with its
+   first 8 scans rerun by a CPU copy of the builder, and MapBuilder with
+   the default 2D options (per-scan, IMU) plus odometry and the
+   pure-localization trimmer (200 scans, synchronous pose graph): scans/s,
+   real-time ratio, error against ground truth, launches per path.
+7. kernels: one line with every kernel's numbers (the main case) and the
+   launches of each path above.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script fails before printing a result. It
@@ -287,7 +297,43 @@ def loop_world_options():
     )
 
 
-def run_builder(measurements, device, chunk):
+def range_events(measurements):
+    return [("range", m.time, m) for m in measurements]
+
+
+def feed(builder, events):
+    """Feed time-sorted (kind, time, payload) events to a local trajectory
+    builder; returns its matching results (a chunked builder returns lists
+    and is flushed at the end, a per-scan one returns one or None)."""
+    results = []
+    for kind, _, payload in events:
+        if kind == "imu":
+            builder.add_imu_data(payload)
+        elif kind == "odometry":
+            builder.add_odometry_data(payload)
+        else:
+            out = builder.add_range_data("range", payload)
+            if isinstance(out, list):
+                results.extend(out)
+            elif out is not None:
+                results.append(out)
+    if hasattr(builder, "flush"):
+        results.extend(builder.flush())
+    return results
+
+
+def feed_events(builder, events):
+    """Feed events without flushing a chunked builder."""
+    for kind, _, payload in events:
+        if kind == "imu":
+            builder.add_imu_data(payload)
+        elif kind == "odometry":
+            builder.add_odometry_data(payload)
+        else:
+            builder.add_range_data("range", payload)
+
+
+def run_builder(events, device, chunk):
     from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
         ChunkedLocalTrajectoryBuilder2D,
     )
@@ -295,19 +341,15 @@ def run_builder(measurements, device, chunk):
     builder = ChunkedLocalTrajectoryBuilder2D(
         loop_world_options(), {"range"}, chunk_size=chunk, device=device
     )
-    results = []
-    for m in measurements:
-        results.extend(builder.add_range_data("range", m))
-    results.extend(builder.flush())
-    return results
+    return feed(builder, events)
 
 
 FLAGS = ("matched", "inserted", "created", "popped", "finished", "num_filtered")
 
 
-def per_scan_parity(measurements):
-    """Drive the frontend on cuda one scan per chunk and rerun each scan
-    on the CPU from a copy of the GPU state before it, with the same
+def per_scan_parity(events, options=None):
+    """Drive the chunked frontend on cuda one scan per chunk and rerun each
+    scan on the CPU from a copy of the GPU state before it, with the same
     packed input. Flags must be identical and poses within 1e-3 m and
     1e-3 rad."""
     import torch
@@ -352,13 +394,11 @@ def per_scan_parity(measurements):
         return out
 
     builder = ChunkedLocalTrajectoryBuilder2D(
-        loop_world_options(), {"range"}, chunk_size=1, device="cuda"
+        options or loop_world_options(), {"range"}, chunk_size=1, device="cuda"
     )
     tf.run_chunk = checked
     try:
-        for m in measurements:
-            builder.add_range_data("range", m)
-        builder.flush()
+        feed(builder, events)
     finally:
         tf.run_chunk = run
     torch.cuda.synchronize()
@@ -374,12 +414,7 @@ def per_scan_parity(measurements):
 
 
 def profile_phase(measurements, chunk):
-    """One warm chunk under torch.profiler: the device's busy share (sum
-    of kernel times over wall time), kernels per scan, and the kernels
-    that take the most time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """One warm chunk of the chunked frontend under torch.profiler."""
     from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
         ChunkedLocalTrajectoryBuilder2D,
     )
@@ -387,13 +422,22 @@ def profile_phase(measurements, chunk):
     builder = ChunkedLocalTrajectoryBuilder2D(
         loop_world_options(), {"range"}, chunk_size=chunk, device="cuda"
     )
-    for m in measurements[:chunk]:
-        builder.add_range_data("range", m)
+    return profiled(builder, range_events(measurements[:chunk]),
+                    range_events(measurements[chunk : 2 * chunk]), chunk)
+
+
+def profiled(builder, warm_events, events, scans):
+    """Feed `warm_events` untimed, then `events` under torch.profiler:
+    the device's busy share (sum of kernel times over wall time), kernels
+    per scan, and the kernels that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    feed_events(builder, warm_events)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for m in measurements[chunk : 2 * chunk]:
-            builder.add_range_data("range", m)
+        feed_events(builder, events)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [
@@ -406,11 +450,11 @@ def profile_phase(measurements, chunk):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
-        "scans": chunk,
+        "scans": scans,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if kernels else None,
         "device_idle_share": 1.0 - busy_us / wall_us if kernels else None,
-        "kernels_per_scan": len(kernels) / chunk,
+        "kernels_per_scan": len(kernels) / scans,
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
         "correlative_window_ms": sum(
             us for name, us in by_name.items() if "window_sums" in name
@@ -436,7 +480,7 @@ def record_real_case(measurements, chunk):
 
     cw.window_sums = recording
     try:
-        run_builder(measurements[: 2 * chunk + 1], "cuda", chunk)
+        run_builder(range_events(measurements[: 2 * chunk + 1]), "cuda", chunk)
     finally:
         cw.window_sums = launch
     if len(calls) <= 2 * chunk:
@@ -444,20 +488,43 @@ def record_real_case(measurements, chunk):
     return calls[2 * chunk]
 
 
+# The slice's world: a quarter lap of the loop world, 300 scans of 1024
+# beams at 20 Hz.
+SLICE_WORLD = dict(laps=0.25, time_step=0.05, num_beams=1024, max_range=12.0)
+
+
+def max_position_error(results, true_poses, time_step, limit=0.3):
+    """Max local-SLAM position error against ground truth, relative to the
+    first matched scan; raises past `limit` or on a non-finite pose."""
+    from cartographer_tpu_torch.testing.synthetic import FAKE_START_TIME
+    from cartographer_tpu_torch.transform import rigid3
+
+    if not np.all(np.isfinite([r.local_pose for r in results])):
+        raise AssertionError("non-finite pose")
+    k0 = int(round((results[0].time - FAKE_START_TIME) / time_step))
+    est0_inv = rigid3.inverse(results[0].local_pose)
+    true0_inv = rigid3.inverse(true_poses[k0])
+    errs = []
+    for r in results:
+        k = int(round((r.time - FAKE_START_TIME) / time_step))
+        est = rigid3.compose(est0_inv, r.local_pose)
+        true = rigid3.compose(true0_inv, true_poses[k])
+        errs.append(float(np.linalg.norm(est[:2] - true[:2])))
+    max_err = max(errs)
+    if max_err > limit:
+        raise AssertionError(f"max position error {max_err:.3f} m > {limit} m")
+    return max_err
+
+
 def slice_phase(device, smi):
     import torch
 
     from cartographer_tpu_torch.kernels import correlative_window as cw
-    from cartographer_tpu_torch.testing.synthetic import (
-        FAKE_START_TIME,
-        generate_loop_world,
-    )
+    from cartographer_tpu_torch.testing.synthetic import generate_loop_world
     from cartographer_tpu_torch.transform import rigid3
 
-    time_step, chunk = 0.05, 32
-    measurements, true_poses = generate_loop_world(
-        laps=0.25, time_step=time_step, num_beams=1024, max_range=12.0
-    )
+    time_step, chunk = SLICE_WORLD["time_step"], 32
+    measurements, true_poses = generate_loop_world(**SLICE_WORLD)
     num_scans = len(measurements)
 
     from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
@@ -491,30 +558,17 @@ def slice_phase(device, smi):
             f"{len(results)} matched scans"
         )
     # (b) Local-SLAM error against ground truth, relative to the first node.
-    k0 = int(round((results[0].time - FAKE_START_TIME) / time_step))
-    est0_inv = rigid3.inverse(results[0].local_pose)
-    true0_inv = rigid3.inverse(true_poses[k0])
-    errs = []
-    for r in results:
-        k = int(round((r.time - FAKE_START_TIME) / time_step))
-        est = rigid3.compose(est0_inv, r.local_pose)
-        true = rigid3.compose(true0_inv, true_poses[k])
-        errs.append(float(np.linalg.norm(est[:2] - true[:2])))
-    max_err = max(errs)
-    if not np.all(np.isfinite([r.local_pose for r in results])):
-        raise AssertionError("non-finite pose")
-    if max_err > 0.3:
-        raise AssertionError(f"max position error {max_err:.3f} m > 0.3 m")
+    max_err = max_position_error(results, true_poses, time_step)
 
     # (c) Every scan of the first two chunks again, on the CPU, from the
     # GPU's state before it and the same packed input.
-    head = measurements[: 2 * chunk]
+    head = range_events(measurements[: 2 * chunk])
     step = per_scan_parity(head)
     # For the record: the CPU free-running over the same two chunks. The
     # frontend amplifies ulp-level differences (see PERF.md), so this
     # is reported, not asserted.
     cpu = {r.time: r for r in run_builder(head, "cpu", chunk)}
-    gpu = {r.time: r for r in results if r.time <= head[-1].time}
+    gpu = {r.time: r for r in results if r.time <= head[-1][1]}
     both = sorted(set(gpu) & set(cpu))
     free = {
         "free_run_matched": [len(gpu), len(cpu)],
@@ -554,10 +608,11 @@ def slice_phase(device, smi):
     return r, real_args
 
 
-# The backend phase's world: one lap of bench.py's scaled world (a
-# figure-eight through the pillared hall, 1000 scans of 1024 beams).
+# The backend phase's world: half a lap of bench.py's scaled world (a
+# figure-eight through the pillared hall, 500 scans of 1024 beams; a depth
+# cut from bench.py's 2 laps, to keep the script inside its time limit).
 BACKEND_WORLD = dict(
-    laps=1.0, duration_per_lap=50.0, time_step=0.05, num_beams=1024,
+    laps=0.5, duration_per_lap=50.0, time_step=0.05, num_beams=1024,
     max_range=12.0, noise_std=0.01,
 )
 
@@ -924,6 +979,310 @@ def backend_phase(device, smi):
     emit(r)
     return r
 
+# -- sensors: IMU and odometry, the per-scan path, TSDF, MapBuilder's default
+
+
+def sensor_events(measurements, seed=0):
+    """The slice world's scans with IMU at 100 Hz (angular velocity z the
+    figure-eight's yaw rate by central difference, linear acceleration
+    (0, 0, 9.8)) and odometry at 50 Hz (the true pose plus N(0, 1e-3) m in
+    x and y), both from 0.05 s before the first scan; time-sorted (kind,
+    time, payload) events, IMU before odometry before range at equal
+    times."""
+    from cartographer_tpu_torch.sensor.data import ImuData, OdometryData
+    from cartographer_tpu_torch.testing.synthetic import (
+        FAKE_START_TIME,
+        _figure_eight_pose,
+    )
+    from cartographer_tpu_torch.transform import rigid3
+
+    # generate_loop_world's defaults: half width 8 m, half height 6 m,
+    # 60 s per lap.
+    def pose(t):
+        return _figure_eight_pose(2.0 * np.pi * (t - FAKE_START_TIME) / 60.0, 8.0, 6.0)
+
+    t_end = measurements[-1].time
+    events = []
+    h = 1e-3
+    for t in np.arange(FAKE_START_TIME - 0.05, t_end, 0.01):
+        d_yaw = pose(t + h)[1] - pose(t - h)[1]
+        yaw_rate = float(np.arctan2(np.sin(d_yaw), np.cos(d_yaw))) / (2.0 * h)
+        events.append(("imu", float(t), ImuData(
+            time=float(t), linear_acceleration=np.array([0.0, 0.0, 9.8]),
+            angular_velocity=np.array([0.0, 0.0, yaw_rate]),
+        )))
+    rng = np.random.default_rng(seed)
+    for t in np.arange(FAKE_START_TIME - 0.05, t_end, 0.02):
+        pos, yaw = pose(t)
+        xyz = np.array([pos[0], pos[1], 0.0])
+        xyz[:2] += rng.normal(0.0, 1e-3, 2)
+        events.append(("odometry", float(t), OdometryData(
+            time=float(t),
+            pose=rigid3.make(xyz, rigid3.quat_from_angle_axis(np.array([0.0, 0.0, yaw]))),
+        )))
+    events += range_events(measurements)
+    order = {"imu": 0, "odometry": 1, "range": 2}
+    events.sort(key=lambda e: (e[1], order[e[0]]))
+    return events
+
+
+def first_scans(events, num):
+    """The events up to and including the num-th scan."""
+    seen = 0
+    for i, (kind, _, _) in enumerate(events):
+        seen += kind == "range"
+        if seen == num:
+            return events[: i + 1]
+    return events
+
+
+def sensor_options(grid_type="PROBABILITY_GRID"):
+    """The slice's frontend (loop_world_options) with IMU on."""
+    opts = loop_world_options()
+    opts.use_imu_data = True
+    opts.submaps.grid_options_2d.grid_type = grid_type
+    return opts
+
+
+def cpu_twin(builder):
+    """A copy of a per-scan LocalTrajectoryBuilder2D on the CPU: the host
+    state copied, the submap grids moved."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    twin = copy.deepcopy(builder)
+    cpu = torch.device("cpu")
+    twin._device = cpu
+    twin._active_submaps._device = cpu
+    for submap in twin._active_submaps._submaps:
+        grid = submap.grid
+        submap.grid = dataclasses.replace(grid, **{
+            f.name: getattr(grid, f.name).cpu()
+            for f in dataclasses.fields(grid)
+            if isinstance(getattr(grid, f.name), torch.Tensor)
+        })
+    return twin
+
+
+def per_scan_builder_parity(events, options, device, num_scans=8):
+    """The per-scan builder on `device` over the first `num_scans` scans; each
+    scan is also run by a CPU copy of the builder as it stood before it.
+    The same result kinds, poses within 1e-3 m and 1e-3 rad."""
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
+        LocalTrajectoryBuilder2D,
+    )
+    from cartographer_tpu_torch.transform import rigid3
+
+    builder = LocalTrajectoryBuilder2D(options, {"range"}, device=device)
+    worst_m = worst_rad = 0.0
+    compared = 0
+    for kind, _, payload in first_scans(events, num_scans):
+        if kind == "imu":
+            builder.add_imu_data(payload)
+            continue
+        if kind == "odometry":
+            builder.add_odometry_data(payload)
+            continue
+        twin = cpu_twin(builder)
+        g = builder.add_range_data("range", payload)
+        c = twin.add_range_data("range", payload)
+        if (g is None) != (c is None) or (
+            g is not None and (g.insertion_result is None) != (c.insertion_result is None)
+        ):
+            raise AssertionError(f"scan {compared}: GPU/CPU per-scan results differ in kind")
+        if g is None:
+            continue
+        gp, cp = rigid3.project_2d(g.local_pose), rigid3.project_2d(c.local_pose)
+        worst_m = max(worst_m, float(np.max(np.abs(gp[:2] - cp[:2]))))
+        worst_rad = max(worst_rad, float(abs((gp[2] - cp[2] + np.pi) % (2 * np.pi) - np.pi)))
+        compared += 1
+    if worst_m > 1e-3 or worst_rad > 1e-3:
+        raise AssertionError(
+            f"per-scan GPU/CPU poses differ by {worst_m:.2e} m, {worst_rad:.2e} rad"
+        )
+    return {"cpu_parity_scans": compared, "cpu_parity_max_m": worst_m,
+            "cpu_parity_max_rad": worst_rad}
+
+
+def torch_device(device):
+    import torch
+
+    return torch.device(device)
+
+
+def require_launches(device, launches: int, needed: int, what: str) -> None:
+    """The CUDA kernel ran at least once per case (on the card; the CPU
+    takes the plain version, which counts nothing)."""
+    import torch
+
+    if torch.device(device).type == "cuda" and launches < needed:
+        raise AssertionError(
+            f"correlative_window launched {launches} times for {needed} {what}"
+        )
+
+
+def timed_run(make_builder, events, num_scans, time_step, true_poses, device):
+    """Feed `events` to a fresh builder with the launch count set to 0:
+    scans/s, real-time ratio, error against ground truth, launches."""
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+
+    builder = make_builder()
+    sync(device)
+    cw.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = feed(builder, events)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = cw.LAUNCHES
+    if not results:
+        raise AssertionError("no scan was matched")
+    return results, {
+        "scans": num_scans,
+        "matched": len(results),
+        "inserted": sum(r.insertion_result is not None for r in results),
+        "wall_s": wall,
+        "scans_per_s": num_scans / wall,
+        "real_time_ratio": num_scans * time_step / wall,
+        "max_position_error_m": max_position_error(results, true_poses, time_step),
+        "launches": {"correlative_window": launches},
+    }
+
+
+def per_scan_part(events, true_poses, options, num_scans, time_step, device):
+    """The per-scan builder on `device` over the first `num_scans` scans, then
+    its GPU/CPU parity. The correlative match runs once for every matched
+    scan that has a submap to match against (all but the first)."""
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
+        LocalTrajectoryBuilder2D,
+    )
+
+    head = first_scans(events, num_scans)
+    results, r = timed_run(
+        lambda: LocalTrajectoryBuilder2D(options, {"range"}, device=device),
+        head, num_scans, time_step, true_poses, device,
+    )
+    require_launches(device, r["launches"]["correlative_window"], len(results) - 1,
+                     "matched scans with a submap")
+    r.update(per_scan_builder_parity(events, options, device))
+    if torch_device(device).type == "cuda":
+        # Scans 11-20 of a fresh run under the profiler.
+        warm = first_scans(events, 10)
+        r["profile"] = profiled(
+            LocalTrajectoryBuilder2D(options, {"range"}, device=device),
+            warm, first_scans(events, 20)[len(warm):], 10,
+        )
+    return r
+
+
+def map_builder_part(events, num_scans, time_step, device):
+    """MapBuilder on `device` with the default 2D TrajectoryBuilderOptions
+    (per-scan builder, IMU) plus odometry, num_range_data 10 and the
+    pure-localization trimmer keeping 3 submaps, behind the backend
+    phase's pose graph drained synchronously."""
+    from cartographer_tpu_torch.common.config import (
+        PureLocalizationTrimmerOptions,
+        TrajectoryBuilderOptions,
+    )
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
+        LocalTrajectoryBuilder2D,
+    )
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+
+    mb_options, _ = backend_options()
+    mb_options.async_pose_graph = False
+    options = TrajectoryBuilderOptions(
+        pure_localization_trimmer=PureLocalizationTrimmerOptions(max_submaps_to_keep=3)
+    )
+    options.trajectory_builder_2d.submaps.num_range_data = 10
+    mb = MapBuilder(mb_options, device=device)
+    tid = mb.add_trajectory_builder({"range", "imu", "odometry"}, options)
+    builder = mb.get_trajectory_builder(tid)
+    if not isinstance(builder._wrapped._local_trajectory_builder, LocalTrajectoryBuilder2D):
+        raise AssertionError("the default options did not route to the per-scan builder")
+    sync(device)
+    cw.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for kind, _, payload in first_scans(events, num_scans):
+        builder.add_sensor_data(kind, payload)
+    mb.finish_trajectory(tid)
+    mb.pose_graph.run_final_optimization()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = cw.LAUNCHES
+    mb.shutdown()
+    pg = mb.pose_graph
+    left = [sid.submap_index for sid, _ in pg.get_all_submap_data().items(SubmapId)
+            if sid.trajectory_id == tid]
+    nodes = [n for nid, n in pg.get_trajectory_nodes().items(NodeId)
+             if nid.trajectory_id == tid]
+    if not nodes or not np.all(np.isfinite([n.global_pose for n in nodes])):
+        raise AssertionError("no or non-finite node poses")
+    if len(left) > 3:
+        raise AssertionError(f"{len(left)} submaps remain, the trimmer keeps 3")
+    created = max(left) + 1
+    if created - len(left) < 1:
+        raise AssertionError("the pure-localization trimmer removed no submap")
+    return {
+        "scans": num_scans,
+        "nodes": len(nodes),
+        "submaps_created": created,
+        "submaps_left": len(left),
+        "constraints": len(pg.constraints),
+        "wall_s": wall,
+        "scans_per_s": num_scans / wall,
+        "real_time_ratio": num_scans * time_step / wall,
+        "launches": {"correlative_window": launches},
+    }
+
+
+def sensors_phase(device, smi, world=SLICE_WORLD):
+    """The slice's world with IMU and odometry through four paths on
+    `device`:
+    the chunked frontend, the per-scan builder on a probability grid and
+    on a TSDF, and MapBuilder with the default 2D options."""
+    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
+        ChunkedLocalTrajectoryBuilder2D,
+    )
+    from cartographer_tpu_torch.testing.synthetic import generate_loop_world
+
+    time_step, chunk = world["time_step"], 32
+    measurements, true_poses = generate_loop_world(**world)
+    events = sensor_events(measurements)
+    t_phase = time.perf_counter()
+
+    results, chunked = timed_run(
+        lambda: ChunkedLocalTrajectoryBuilder2D(
+            sensor_options(), {"range"}, chunk_size=chunk, device=device),
+        events, len(measurements), time_step, true_poses, device,
+    )
+    require_launches(device, chunked["launches"]["correlative_window"], len(results),
+                     "matched scans")
+    chunked["chunk"] = chunk
+    # The first chunk's scans (the slice phase reruns two; one here keeps
+    # the phase inside the script's time on slower hosts).
+    chunked.update(per_scan_parity(first_scans(events, chunk), sensor_options()))
+
+    per_scan = per_scan_part(events, true_poses, sensor_options(), 150, time_step, device)
+    tsdf = per_scan_part(events, true_poses, sensor_options("TSDF"), 100, time_step, device)
+    map_builder = map_builder_part(events, 200, time_step, device)
+    r = {
+        "phase": "sensors",
+        "imu_hz": 100, "odometry_hz": 50,
+        "chunked": chunked,
+        "per_scan": per_scan,
+        "per_scan_tsdf": tsdf,
+        "map_builder": map_builder,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": smi,
+    }
+    emit(r)
+    return r
+
+
 
 def main() -> int:
     import torch
@@ -953,15 +1312,26 @@ def main() -> int:
     kernels = kernel_phase(device)
     sl, real_args = slice_phase(device, smi)
     kernels["real"] = kernel_case("real", real_args)
-    backend_phase(device, smi)
+    be = backend_phase(device, smi)
+    se = sensors_phase(device, smi)
 
+    # Each path's launches, counted from 0 just before it was driven.
+    by_path = {
+        "slice_chunked": sl["launches"]["correlative_window"],
+        "backend_map_builder": be["launches"]["correlative_window"],
+        "sensors_chunked": se["chunked"]["launches"]["correlative_window"],
+        "sensors_per_scan": se["per_scan"]["launches"]["correlative_window"],
+        "sensors_per_scan_tsdf": se["per_scan_tsdf"]["launches"]["correlative_window"],
+        "sensors_map_builder_default": se["map_builder"]["launches"]["correlative_window"],
+    }
     main_case = kernels["main"]
     emit({"kernels": [{
         "name": "correlative_window",
         "route": "cuda",
         "source": "cartographer_tpu_torch/csrc/correlative_window.cu",
         "replaces": "cartographer_tpu/ops/pallas_kernels.py:82",
-        "launches": sl["launches"]["correlative_window"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],

@@ -194,13 +194,22 @@ def test_state_round_trip():
 
 
 def test_unported_options_raise():
+    """The TPU band matcher and the debug stage stubs raise; IMU and
+    odometry fusion run (tests/test_torch_imu_odometry.py holds them
+    against the JAX package)."""
     tcfg = tf.FrontendConfig2D(**cfg_kwargs(10.0, False))
     state = tf.init_state(GRID, device="cpu")
-    buf = np.zeros(tf.input_layout(tcfg)[-1], np.uint8)
-    for change in ({"use_imu": True}, {"use_odometry": True},
-                   {"use_band_matcher": True}):
+    for change in ({"use_band_matcher": True}, {"disable": "voxel"}):
+        cfg = dataclasses.replace(tcfg, **change)
+        buf = np.zeros(tf.input_layout(cfg)[-1], np.uint8)
         with pytest.raises(NotImplementedError):
-            tf.run_chunk(dataclasses.replace(tcfg, **change), state, 0.0, buf)
+            tf.run_chunk(cfg, state, 0.0, buf)
+    cfg = dataclasses.replace(tcfg, use_imu=True, use_odometry=True, chunk_size=1)
+    buf = np.zeros(tf.input_layout(cfg)[-1], np.uint8)
+    out_state, _, out_points, packed = tf.run_chunk(cfg, state, 0.0, buf)
+    assert out_points.shape == (1, N_POINTS, 4)
+    assert scalars(packed.numpy(), 1)[0, tf.SIDX["matched"]] == 0.0  # no points
+    assert int(out_state.odo_len) == 0
 
 
 def builder_options(mod):
@@ -265,12 +274,17 @@ def test_builder_matches_jax_builder():
 
 
 def test_builder_rejects_unported_inputs():
+    """IMU data without use_imu_data raises RuntimeError, as in the JAX
+    builder; with it the builder is built for IMU fusion; odometry before
+    the first scan is ignored."""
+    from cartographer_tpu_torch.sensor.data import ImuData, OdometryData
+
     opts = builder_options(tconfig)
     opts.use_imu_data = True
-    with pytest.raises(NotImplementedError):
-        TorchBuilder(opts, {"range"}, device="cpu")
+    assert TorchBuilder(opts, {"range"}, device="cpu")._cfg.use_imu
     tb = TorchBuilder(builder_options(tconfig), {"range"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tb.add_imu_data(None)
-    with pytest.raises(NotImplementedError):
-        tb.add_odometry_data(None)
+    with pytest.raises(RuntimeError, match="use_imu_data"):
+        tb.add_imu_data(ImuData(time=0.0, linear_acceleration=np.array([0, 0, 9.8]),
+                                angular_velocity=np.zeros(3)))
+    tb.add_odometry_data(OdometryData(time=0.0, pose=rigid3.identity()))
+    assert tb._state is None and not tb._odom_buffer

@@ -22,6 +22,18 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 bad = [k for k in sys.modules
        if k == "cartographer_tpu" or k.startswith("cartographer_tpu.")]
 assert not bad, bad
+# The per-scan path's, the fusion's, the TSDF's and the trimmers' modules,
+# by name: a module missing here fails.
+local_slam = ["mapping.imu_tracker", "mapping.motion_filter",
+          "mapping.pose_extrapolator", "mapping.pose_extrapolator_interface",
+          "mapping.local_trajectory_builder_2d", "mapping.submap_2d",
+          "mapping.tsdf_2d", "mapping.normal_estimation_2d", "mapping.trimmers",
+          "mapping.grid_2d", "mapping.scan_matching_2d", "mapping.map_builder",
+          "mapping.pose_graph_2d", "mapping.constraint_builder_2d",
+          "ops.tsdf_raycast_2d", "ops.raycast_2d", "ops.frontend_2d",
+          "ops.scan_matching.gauss_newton_2d", "sensor.voxel_filter"]
+missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
+assert not missing, missing
 print(len(names))
 """
 
