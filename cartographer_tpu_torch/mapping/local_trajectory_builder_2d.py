@@ -16,6 +16,7 @@ the JAX package. The result types are shared with the chunked frontend.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time as _walltime
 from typing import List, Optional, Set
@@ -88,6 +89,15 @@ class LocalTrajectoryBuilder2D:
         self._accumulation_started: Optional[float] = None
         self._last_wall_time: Optional[float] = None
         self._last_sensor_time: Optional[Time] = None
+
+    def to(self, device) -> "LocalTrajectoryBuilder2D":
+        """A copy of the builder as it stands, on `device`: the host state
+        (extrapolator, motion filter, collator, accumulated scans) copied,
+        the submap grids moved."""
+        active = self._active_submaps.to(device)
+        twin = copy.deepcopy(self, {id(self._active_submaps): active})
+        twin._device = active._device
+        return twin
 
     # -- sensor feeds -------------------------------------------------------
 

@@ -12,6 +12,7 @@ device; the per-scan bookkeeping stays on the host.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 from typing import List, Optional
@@ -91,6 +92,21 @@ class ActiveSubmaps2D:
 
     def submaps(self) -> List[Submap2D]:
         return list(self._submaps)
+
+    def to(self, device) -> "ActiveSubmaps2D":
+        """A copy on `device`: the bookkeeping copied, the grids moved."""
+        device = torch.device(device)
+        moved = {
+            id(s.grid): dataclasses.replace(s.grid, **{
+                f.name: getattr(s.grid, f.name).to(device, copy=True)
+                for f in dataclasses.fields(s.grid)
+                if isinstance(getattr(s.grid, f.name), torch.Tensor)
+            })
+            for s in self._submaps
+        }
+        twin = copy.deepcopy(self, moved)
+        twin._device = device
+        return twin
 
     def insert_range_data(self, range_data: RangeData) -> List[Submap2D]:
         """Insert (already in local frame); returns submaps after insertion.

@@ -37,13 +37,17 @@ exits non-zero:
    CPU.
 6. sensors: the slice's world with IMU at 100 Hz and odometry at 50 Hz
    (made from the figure-eight's ground truth) through four paths on
-   cuda: the chunked frontend (300 scans; its first chunk rerun scan by
-   scan on the CPU), the per-scan LocalTrajectoryBuilder2D on a
+   cuda: the chunked frontend (300 scans; its first two chunks rerun scan
+   by scan on the CPU), the per-scan LocalTrajectoryBuilder2D on a
    probability grid (150 scans) and on a TSDF (100 scans), each with its
    first 8 scans rerun by a CPU copy of the builder, and MapBuilder with
    the default 2D options (per-scan, IMU) plus odometry and the
    pure-localization trimmer (200 scans, synchronous pose graph): scans/s,
-   real-time ratio, error against ground truth, launches per path.
+   real-time ratio, error against ground truth, launches per path. The
+   inputs of each per-scan path's first window-sum call (the angle rows
+   padded to a power of two; the TSDF path's grid is the TSDF's
+   probability view) become the kernel phase's "per_scan" and
+   "per_scan_tsdf" cases.
 7. kernels: one line with every kernel's numbers (the main case) and the
    launches of each path above.
 
@@ -54,6 +58,7 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -301,10 +306,11 @@ def range_events(measurements):
     return [("range", m.time, m) for m in measurements]
 
 
-def feed(builder, events):
+def feed(builder, events, flush=True):
     """Feed time-sorted (kind, time, payload) events to a local trajectory
     builder; returns its matching results (a chunked builder returns lists
-    and is flushed at the end, a per-scan one returns one or None)."""
+    and is flushed at the end unless `flush` is false, a per-scan one
+    returns one or None)."""
     results = []
     for kind, _, payload in events:
         if kind == "imu":
@@ -317,20 +323,9 @@ def feed(builder, events):
                 results.extend(out)
             elif out is not None:
                 results.append(out)
-    if hasattr(builder, "flush"):
+    if flush and hasattr(builder, "flush"):
         results.extend(builder.flush())
     return results
-
-
-def feed_events(builder, events):
-    """Feed events without flushing a chunked builder."""
-    for kind, _, payload in events:
-        if kind == "imu":
-            builder.add_imu_data(payload)
-        elif kind == "odometry":
-            builder.add_odometry_data(payload)
-        else:
-            builder.add_range_data("range", payload)
 
 
 def run_builder(events, device, chunk):
@@ -433,11 +428,11 @@ def profiled(builder, warm_events, events, scans):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    feed_events(builder, warm_events)
+    feed(builder, warm_events, flush=False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        feed_events(builder, events)
+        feed(builder, events, flush=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [
@@ -462,30 +457,40 @@ def profiled(builder, warm_events, events, scans):
     }
 
 
-def record_real_case(measurements, chunk):
-    """The inputs of the first window_sums call of the third chunk, from an
-    untimed run of the frontend up to that call."""
+@contextlib.contextmanager
+def window_sums_inputs(index):
+    """Within the block, the window-sum kernel's wrapper keeps a copy of
+    the inputs of its `index`-th call (from 0) in the list it yields."""
     import torch
 
     from cartographer_tpu_torch.kernels import correlative_window as cw
 
     launch = cw.window_sums
-    calls = []
+    calls = [0]
+    kept = []
 
     def recording(*args):
-        calls.append(tuple(
-            x.clone() if isinstance(x, torch.Tensor) else x for x in args
-        ) if len(calls) == 2 * chunk else None)
+        if calls[0] == index:
+            kept.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                              for x in args))
+        calls[0] += 1
         return launch(*args)
 
     cw.window_sums = recording
     try:
-        run_builder(range_events(measurements[: 2 * chunk + 1]), "cuda", chunk)
+        yield kept
     finally:
         cw.window_sums = launch
-    if len(calls) <= 2 * chunk:
-        raise AssertionError(f"only {len(calls)} window_sums calls")
-    return calls[2 * chunk]
+    if not kept:
+        raise AssertionError(f"only {calls[0]} window_sums calls")
+
+
+def record_real_case(measurements, chunk):
+    """The inputs of the first window_sums call of the third chunk, from an
+    untimed run of the frontend up to that call."""
+    with window_sums_inputs(2 * chunk) as kept:
+        run_builder(range_events(measurements[: 2 * chunk + 1]), "cuda", chunk)
+    return kept[0]
 
 
 # The slice's world: a quarter lap of the loop world, 300 scans of 1024
@@ -521,7 +526,6 @@ def slice_phase(device, smi):
 
     from cartographer_tpu_torch.kernels import correlative_window as cw
     from cartographer_tpu_torch.testing.synthetic import generate_loop_world
-    from cartographer_tpu_torch.transform import rigid3
 
     time_step, chunk = SLICE_WORLD["time_step"], 32
     measurements, true_poses = generate_loop_world(**SLICE_WORLD)
@@ -562,27 +566,7 @@ def slice_phase(device, smi):
 
     # (c) Every scan of the first two chunks again, on the CPU, from the
     # GPU's state before it and the same packed input.
-    head = range_events(measurements[: 2 * chunk])
-    step = per_scan_parity(head)
-    # For the record: the CPU free-running over the same two chunks. The
-    # frontend amplifies ulp-level differences (see PERF.md), so this
-    # is reported, not asserted.
-    cpu = {r.time: r for r in run_builder(head, "cpu", chunk)}
-    gpu = {r.time: r for r in results if r.time <= head[-1][1]}
-    both = sorted(set(gpu) & set(cpu))
-    free = {
-        "free_run_matched": [len(gpu), len(cpu)],
-        "free_run_insert_mismatches": sum(
-            (gpu[t].insertion_result is None) != (cpu[t].insertion_result is None)
-            for t in both
-        ),
-        "free_run_max_m": max(
-            float(np.linalg.norm(
-                rigid3.trans(gpu[t].local_pose) - rigid3.trans(cpu[t].local_pose)
-            ))
-            for t in both
-        ),
-    }
+    step = per_scan_parity(range_events(measurements[: 2 * chunk]))
     profile = profile_phase(measurements[: 2 * chunk], chunk)
     real_args = record_real_case(measurements, chunk)
 
@@ -600,7 +584,6 @@ def slice_phase(device, smi):
         "launches": {"correlative_window": launches},
         "max_position_error_m": max_err,
         **step,
-        **free,
         "profile": profile,
         "card": smi,
     }
@@ -1044,80 +1027,51 @@ def sensor_options(grid_type="PROBABILITY_GRID"):
     return opts
 
 
-def cpu_twin(builder):
-    """A copy of a per-scan LocalTrajectoryBuilder2D on the CPU: the host
-    state copied, the submap grids moved."""
-    import copy
-    import dataclasses
-
-    import torch
-
-    twin = copy.deepcopy(builder)
-    cpu = torch.device("cpu")
-    twin._device = cpu
-    twin._active_submaps._device = cpu
-    for submap in twin._active_submaps._submaps:
-        grid = submap.grid
-        submap.grid = dataclasses.replace(grid, **{
-            f.name: getattr(grid, f.name).cpu()
-            for f in dataclasses.fields(grid)
-            if isinstance(getattr(grid, f.name), torch.Tensor)
-        })
-    return twin
-
-
-def per_scan_builder_parity(events, options, device, num_scans=8):
-    """The per-scan builder on `device` over the first `num_scans` scans; each
+def per_scan_builder_parity(events, options, num_scans=8):
+    """The per-scan builder on cuda over the first `num_scans` scans; each
     scan is also run by a CPU copy of the builder as it stood before it.
-    The same result kinds, poses within 1e-3 m and 1e-3 rad."""
+    The same result kinds, poses within 1e-3 m and 1e-3 rad. Also returns
+    the inputs of the run's first window-sum call."""
     from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
         LocalTrajectoryBuilder2D,
     )
     from cartographer_tpu_torch.transform import rigid3
 
-    builder = LocalTrajectoryBuilder2D(options, {"range"}, device=device)
+    builder = LocalTrajectoryBuilder2D(options, {"range"}, device="cuda")
     worst_m = worst_rad = 0.0
     compared = 0
-    for kind, _, payload in first_scans(events, num_scans):
-        if kind == "imu":
-            builder.add_imu_data(payload)
-            continue
-        if kind == "odometry":
-            builder.add_odometry_data(payload)
-            continue
-        twin = cpu_twin(builder)
-        g = builder.add_range_data("range", payload)
-        c = twin.add_range_data("range", payload)
-        if (g is None) != (c is None) or (
-            g is not None and (g.insertion_result is None) != (c.insertion_result is None)
-        ):
-            raise AssertionError(f"scan {compared}: GPU/CPU per-scan results differ in kind")
-        if g is None:
-            continue
-        gp, cp = rigid3.project_2d(g.local_pose), rigid3.project_2d(c.local_pose)
-        worst_m = max(worst_m, float(np.max(np.abs(gp[:2] - cp[:2]))))
-        worst_rad = max(worst_rad, float(abs((gp[2] - cp[2] + np.pi) % (2 * np.pi) - np.pi)))
-        compared += 1
+    with window_sums_inputs(0) as kept:
+        for kind, _, payload in first_scans(events, num_scans):
+            if kind == "imu":
+                builder.add_imu_data(payload)
+                continue
+            if kind == "odometry":
+                builder.add_odometry_data(payload)
+                continue
+            twin = builder.to("cpu")
+            g = builder.add_range_data("range", payload)
+            c = twin.add_range_data("range", payload)
+            if (g is None) != (c is None) or (g is not None and (
+                    g.insertion_result is None) != (c.insertion_result is None)):
+                raise AssertionError(
+                    f"scan {compared}: GPU/CPU per-scan results differ in kind")
+            if g is None:
+                continue
+            gp, cp = rigid3.project_2d(g.local_pose), rigid3.project_2d(c.local_pose)
+            worst_m = max(worst_m, float(np.max(np.abs(gp[:2] - cp[:2]))))
+            worst_rad = max(worst_rad, _angle_diff(gp[2], cp[2]))
+            compared += 1
     if worst_m > 1e-3 or worst_rad > 1e-3:
         raise AssertionError(
             f"per-scan GPU/CPU poses differ by {worst_m:.2e} m, {worst_rad:.2e} rad"
         )
     return {"cpu_parity_scans": compared, "cpu_parity_max_m": worst_m,
-            "cpu_parity_max_rad": worst_rad}
+            "cpu_parity_max_rad": worst_rad}, kept[0]
 
 
-def torch_device(device):
-    import torch
-
-    return torch.device(device)
-
-
-def require_launches(device, launches: int, needed: int, what: str) -> None:
-    """The CUDA kernel ran at least once per case (on the card; the CPU
-    takes the plain version, which counts nothing)."""
-    import torch
-
-    if torch.device(device).type == "cuda" and launches < needed:
+def require_launches(launches: int, needed: int, what: str) -> None:
+    """The CUDA kernel ran at least once per case."""
+    if launches < needed:
         raise AssertionError(
             f"correlative_window launched {launches} times for {needed} {what}"
         )
@@ -1152,8 +1106,10 @@ def timed_run(make_builder, events, num_scans, time_step, true_poses, device):
 
 def per_scan_part(events, true_poses, options, num_scans, time_step, device):
     """The per-scan builder on `device` over the first `num_scans` scans, then
-    its GPU/CPU parity. The correlative match runs once for every matched
-    scan that has a submap to match against (all but the first)."""
+    its GPU/CPU parity and a profile. The correlative match runs once for
+    every matched scan that has a submap to match against (all but the
+    first). Also returns the inputs of the parity run's first window-sum
+    call."""
     from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
         LocalTrajectoryBuilder2D,
     )
@@ -1163,17 +1119,17 @@ def per_scan_part(events, true_poses, options, num_scans, time_step, device):
         lambda: LocalTrajectoryBuilder2D(options, {"range"}, device=device),
         head, num_scans, time_step, true_poses, device,
     )
-    require_launches(device, r["launches"]["correlative_window"], len(results) - 1,
+    require_launches(r["launches"]["correlative_window"], len(results) - 1,
                      "matched scans with a submap")
-    r.update(per_scan_builder_parity(events, options, device))
-    if torch_device(device).type == "cuda":
-        # Scans 11-20 of a fresh run under the profiler.
-        warm = first_scans(events, 10)
-        r["profile"] = profiled(
-            LocalTrajectoryBuilder2D(options, {"range"}, device=device),
-            warm, first_scans(events, 20)[len(warm):], 10,
-        )
-    return r
+    parity, window_sums_args = per_scan_builder_parity(events, options)
+    r.update(parity)
+    # Scans 11-20 of a fresh run under the profiler.
+    warm = first_scans(events, 10)
+    r["profile"] = profiled(
+        LocalTrajectoryBuilder2D(options, {"range"}, device=device),
+        warm, first_scans(events, 20)[len(warm):], 10,
+    )
+    return r, window_sums_args
 
 
 def map_builder_part(events, num_scans, time_step, device):
@@ -1239,18 +1195,18 @@ def map_builder_part(events, num_scans, time_step, device):
     }
 
 
-def sensors_phase(device, smi, world=SLICE_WORLD):
+def sensors_phase(device, smi):
     """The slice's world with IMU and odometry through four paths on
-    `device`:
-    the chunked frontend, the per-scan builder on a probability grid and
-    on a TSDF, and MapBuilder with the default 2D options."""
+    `device`: the chunked frontend, the per-scan builder on a probability
+    grid and on a TSDF, and MapBuilder with the default 2D options. Also
+    returns the inputs of each per-scan path's first window-sum call."""
     from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
         ChunkedLocalTrajectoryBuilder2D,
     )
     from cartographer_tpu_torch.testing.synthetic import generate_loop_world
 
-    time_step, chunk = world["time_step"], 32
-    measurements, true_poses = generate_loop_world(**world)
+    time_step, chunk = SLICE_WORLD["time_step"], 32
+    measurements, true_poses = generate_loop_world(**SLICE_WORLD)
     events = sensor_events(measurements)
     t_phase = time.perf_counter()
 
@@ -1259,15 +1215,15 @@ def sensors_phase(device, smi, world=SLICE_WORLD):
             sensor_options(), {"range"}, chunk_size=chunk, device=device),
         events, len(measurements), time_step, true_poses, device,
     )
-    require_launches(device, chunked["launches"]["correlative_window"], len(results),
+    require_launches(chunked["launches"]["correlative_window"], len(results),
                      "matched scans")
     chunked["chunk"] = chunk
-    # The first chunk's scans (the slice phase reruns two; one here keeps
-    # the phase inside the script's time on slower hosts).
-    chunked.update(per_scan_parity(first_scans(events, chunk), sensor_options()))
+    chunked.update(per_scan_parity(first_scans(events, 2 * chunk), sensor_options()))
 
-    per_scan = per_scan_part(events, true_poses, sensor_options(), 150, time_step, device)
-    tsdf = per_scan_part(events, true_poses, sensor_options("TSDF"), 100, time_step, device)
+    per_scan, per_scan_args = per_scan_part(
+        events, true_poses, sensor_options(), 150, time_step, device)
+    tsdf, tsdf_args = per_scan_part(
+        events, true_poses, sensor_options("TSDF"), 100, time_step, device)
     map_builder = map_builder_part(events, 200, time_step, device)
     r = {
         "phase": "sensors",
@@ -1280,8 +1236,7 @@ def sensors_phase(device, smi, world=SLICE_WORLD):
         "card": smi,
     }
     emit(r)
-    return r
-
+    return r, {"per_scan": per_scan_args, "per_scan_tsdf": tsdf_args}
 
 
 def main() -> int:
@@ -1313,7 +1268,9 @@ def main() -> int:
     sl, real_args = slice_phase(device, smi)
     kernels["real"] = kernel_case("real", real_args)
     be = backend_phase(device, smi)
-    se = sensors_phase(device, smi)
+    se, per_scan_cases = sensors_phase(device, smi)
+    for name, args in per_scan_cases.items():
+        kernels[name] = kernel_case(name, args)
 
     # Each path's launches, counted from 0 just before it was driven.
     by_path = {

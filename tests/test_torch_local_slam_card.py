@@ -4,8 +4,6 @@ IMU and odometry, and the per-scan builder, whose correlative match goes
 through the CUDA window-sum kernel. Nothing here imports the JAX package:
 `python -m pytest tests/test_torch_local_slam_card.py -m cuda`."""
 
-import copy
-import dataclasses
 import math
 
 import numpy as np
@@ -162,20 +160,6 @@ def test_run_chunk_with_imu_and_odometry_on_card_matches_cpu():
     assert int(state.odo_len) >= 2
 
 
-def cpu_copy(builder):
-    """The per-scan builder as it stands, on the CPU: host state copied,
-    submap grids moved."""
-    twin = copy.deepcopy(builder)
-    twin._device = twin._active_submaps._device = torch.device("cpu")
-    for submap in twin._active_submaps._submaps:
-        grid = submap.grid
-        submap.grid = dataclasses.replace(grid, **{
-            f.name: getattr(grid, f.name).cpu() for f in dataclasses.fields(grid)
-            if isinstance(getattr(grid, f.name), torch.Tensor)
-        })
-    return twin
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid_type", ["PROBABILITY_GRID", "TSDF"])
 def test_per_scan_builder_on_card_launches_the_kernel(grid_type):
@@ -194,7 +178,7 @@ def test_per_scan_builder_on_card_launches_the_kernel(grid_type):
     cw.LAUNCHES = 0
     matched = 0
     for m in scans[:12]:
-        twin = cpu_copy(builder)
+        twin = builder.to("cpu")
         launches = cw.LAUNCHES
         g = builder.add_range_data("range", m)
         c = twin.add_range_data("range", m)
