@@ -11,7 +11,10 @@ chunked frontend does not cover falls back to the per-scan builder with a
 warning and a counter, as in the JAX package.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-3D, the IMU-based pose extrapolator, and serialization.
+the 3D route (3D local SLAM is ported, in local_trajectory_builder_3d and
+chunked_frontend_3d; the 3D pose graph and MapBuilder's 3D route come with
+the 3D backend slice), the IMU-based pose extrapolator (with the 3D
+backend, on which it builds), and serialization.
 """
 from __future__ import annotations
 
@@ -191,7 +194,11 @@ class MapBuilder:
             "Exactly one of use_trajectory_builder_2d / 3d must be set."
         )
         if options.use_trajectory_builder_3d:
-            _not_ported("3D (use_trajectory_builder_3d)")
+            _not_ported(
+                "3D (use_trajectory_builder_3d): 3D local SLAM is ported "
+                "(LocalTrajectoryBuilder3D, ChunkedLocalTrajectoryBuilder3D); "
+                "MapBuilder's 3D route comes with the 3D backend slice"
+            )
         self._options = options
         self._device = resolve_device(device)
         thread_pool = None

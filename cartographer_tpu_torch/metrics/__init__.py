@@ -125,7 +125,7 @@ def enable_collection() -> FamilyFactory:
 
 def _register_all() -> None:
     global local_slam_latency, local_slam_real_time_ratio, grid_oob_points
-    global frontend_slow_path_scans
+    global frontend_slow_path_scans, frontend_odometry_dropped
     global pose_graph_constraints_inter, pose_graph_constraints_intra
     global constraint_scores, constraints_found, constraints_searched
     global optimization_runs, beam_overflow_retries
@@ -136,6 +136,11 @@ def _register_all() -> None:
     # Local-SLAM configurations that asked for the chunked frontend and
     # fell back to the per-scan path: scans counted instead of silent.
     frontend_slow_path_scans = _factory.counter("mapping_frontend_slow_path_scans")
+    # Odometry samples the chunked 3D frontend cannot fuse: dropped with a
+    # warning and counted (the per-scan 3D builder fuses them).
+    frontend_odometry_dropped = _factory.counter(
+        "mapping_frontend_odometry_samples_dropped"
+    )
     # Range-data endpoints dropped because they fell outside a fixed grid
     # extent (the reference grows its grids; here the loss is observable).
     grid_oob_points = _factory.counter("mapping_grid_out_of_extent_points")

@@ -48,7 +48,18 @@ exits non-zero:
    padded to a power of two; the TSDF path's grid is the TSDF's
    probability view) become the kernel phase's "per_scan" and
    "per_scan_tsdf" cases.
-7. kernels: one line with every kernel's numbers (the main case) and the
+7. local_slam_3d: bench.py:_bench_3d's world (300 scans of the
+   semicircle wall, 1,575 points a scan, 10 Hz, 5 m of travel; IMU at
+   50 Hz) through both 3D local builders on cuda, with paged grids of 256
+   cells at 0.10 m and 128 at 0.45 m and 40 range data per submap: the
+   chunked frontend (chunk 16, 300 scans, the bench's filters and motion
+   filter; its first chunk rerun scan by scan on the CPU from the GPU's
+   state) and the per-scan LocalTrajectoryBuilder3D with the default
+   options (100 scans; its first 8 scans rerun by a CPU copy): scans/s,
+   real-time ratio, final and max position error against ground truth
+   (limit 0.5 m), dropped grid writes (must be 0), a profile over warm
+   scans, and window-sum launches (0: no 2D kernel on the 3D paths).
+8. kernels: one line with every kernel's numbers (the main case) and the
    launches of each path above.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -424,13 +435,15 @@ def profile_phase(measurements, chunk):
 def profiled(builder, warm_events, events, scans):
     """Feed `warm_events` untimed, then `events` under torch.profiler:
     the device's busy share (sum of kernel times over wall time), kernels
-    per scan, and the kernels that take the most time."""
+    per scan, and the kernels that take the most time. Only device
+    activity is recorded: host op events add nothing these numbers read
+    and cost more profiler time than the window itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     feed(builder, warm_events, flush=False)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         feed(builder, events, flush=False)
         torch.cuda.synchronize()
@@ -1239,6 +1252,228 @@ def sensors_phase(device, smi):
     return r, {"per_scan": per_scan_args, "per_scan_tsdf": tsdf_args}
 
 
+# -- local_slam_3d: the 3D frontends at the JAX package's 3D bench setting
+
+
+def quat_angle(a, b) -> float:
+    return 2.0 * float(np.arccos(min(1.0, abs(float(np.dot(a, b))))))
+
+
+def position_errors_3d(results, true_position, limit=0.5):
+    """Final and max position error of the local poses against ground
+    truth (no alignment: both start at the origin); raises past `limit`
+    (0.1 x the 5 m travel, as tests/test_chunked_frontend_3d.py holds) or
+    on a non-finite pose."""
+    poses = np.array([r.local_pose for r in results])
+    if not np.all(np.isfinite(poses)):
+        raise AssertionError("non-finite 3D pose")
+    errs = [float(np.linalg.norm(r.local_pose[:3] - true_position(r.time)))
+            for r in results]
+    if max(errs) > limit:
+        raise AssertionError(f"3D max position error {max(errs):.3f} m > {limit} m")
+    return errs[-1], max(errs)
+
+
+def chunk_3d_parity(events, num_scans, device="cuda"):
+    """The chunked 3D frontend on `device` one scan per chunk; each scan is
+    rerun on the CPU from a copy of the GPU state before it, with the same
+    packed input. Insert flags identical, poses within 1e-3 m / 1e-3 rad."""
+    from cartographer_tpu_torch.mapping.chunked_frontend_3d import (
+        ChunkedLocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.ops import frontend_3d as tf
+    from cartographer_tpu_torch.testing.bench_3d import bench_3d_options
+
+    n_sc, S = len(tf.SCALARS), tf.SIDX
+    flags = ("matched", "inserted", "created", "popped", "finished", "count0", "count1")
+    worst = {"m": 0.0, "rad": 0.0}
+    steps = []
+    run = tf.run_chunk
+
+    def scalars(packed):
+        return packed.cpu().numpy()[: n_sc * 4].view(np.float32)
+
+    def checked(cfg, state, shift, buf):
+        out = run(cfg, state, shift, buf)
+        cpu_state = tf.state_from_numpy(tf.state_to_numpy(state), device="cpu")
+        cpu_out = run(cfg, cpu_state, shift, buf.cpu())
+        g, c = scalars(out[2]), scalars(cpu_out[2])
+        for k in flags:
+            if g[S[k]] != c[S[k]]:
+                raise AssertionError(
+                    f"3D scan {len(steps)}: GPU/CPU {k} differ: {g[S[k]]} vs {c[S[k]]}")
+        xyz = slice(S["est_x"], S["est_z"] + 1)
+        quat = slice(S["est_qw"], S["est_qz"] + 1)
+        d_m = float(np.max(np.abs(g[xyz] - c[xyz])))
+        d_rad = quat_angle(g[quat], c[quat])
+        if d_m > 1e-3 or d_rad > 1e-3:
+            raise AssertionError(
+                f"3D scan {len(steps)}: GPU/CPU poses differ by {d_m:.2e} m, {d_rad:.2e} rad")
+        worst["m"], worst["rad"] = max(worst["m"], d_m), max(worst["rad"], d_rad)
+        steps.append(bool(g[S["inserted"]] > 0.5))
+        return out
+
+    builder = ChunkedLocalTrajectoryBuilder3D(
+        bench_3d_options(), {"range"}, chunk_size=1, device=device)
+    tf.run_chunk = checked
+    try:
+        feed(builder, first_scans(events, num_scans))
+    finally:
+        tf.run_chunk = run
+    return {"cpu_parity_scans": len(steps), "cpu_parity_inserted": sum(steps),
+            "cpu_parity_max_m": worst["m"], "cpu_parity_max_rad": worst["rad"]}
+
+
+def per_scan_3d_parity(events, options, num_scans=8, device="cuda"):
+    """The per-scan 3D builder on `device` over the first `num_scans` scans;
+    each scan is also run by a CPU copy of the builder as it stood before
+    it. The same result kinds, poses within 1e-3 m and 1e-3 rad."""
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+        LocalTrajectoryBuilder3D,
+    )
+
+    builder = LocalTrajectoryBuilder3D(options, {"range"}, device=device)
+    worst_m = worst_rad = 0.0
+    compared = 0
+    for kind, _, payload in first_scans(events, num_scans):
+        if kind == "imu":
+            builder.add_imu_data(payload)
+            continue
+        twin = builder.to("cpu")
+        g = builder.add_range_data("range", payload)
+        c = twin.add_range_data("range", payload)
+        if (g is None) != (c is None) or (g is not None and (
+                g.insertion_result is None) != (c.insertion_result is None)):
+            raise AssertionError(f"3D scan {compared}: GPU/CPU results differ in kind")
+        if g is None:
+            continue
+        worst_m = max(worst_m, float(np.max(np.abs(g.local_pose[:3] - c.local_pose[:3]))))
+        worst_rad = max(worst_rad, quat_angle(g.local_pose[3:7], c.local_pose[3:7]))
+        compared += 1
+    if worst_m > 1e-3 or worst_rad > 1e-3:
+        raise AssertionError(
+            f"per-scan 3D GPU/CPU poses differ by {worst_m:.2e} m, {worst_rad:.2e} rad")
+    return {"cpu_parity_scans": compared, "cpu_parity_max_m": worst_m,
+            "cpu_parity_max_rad": worst_rad}
+
+
+def run_3d_path(make_builder, events, num_scans, true_position, device):
+    """Feed `events` to a fresh builder with the launch count and the
+    dropped-write counter set to 0: scans/s, real-time ratio at 10 Hz,
+    final and max position error, dropped grid writes, window-sum
+    launches (none: the 3D paths do not use the 2D kernel)."""
+    from cartographer_tpu_torch import metrics
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+
+    builder = make_builder()
+    collected = metrics.enable_collection()
+    try:
+        sync(device)
+        cw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = feed(builder, events)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = cw.LAUNCHES
+        # Dropped writes: counted per chunk by the chunked frontend, and by
+        # the per-scan builder's submaps when they finish; the per-scan
+        # builder's live paged grids hold the rest.
+        dropped = collected.registry()["mapping_grid_out_of_extent_points"].value()
+        if hasattr(builder, "_active_submaps"):
+            dropped += sum(
+                int(getattr(s, name).dropped)
+                for s in builder._active_submaps.submaps()
+                for name in ("high_resolution_grid", "low_resolution_grid")
+                if hasattr(getattr(s, name), "dropped")
+            )
+    finally:
+        metrics.register_family_factory(metrics.FamilyFactory())
+    if not results:
+        raise AssertionError("no 3D scan was matched")
+    if launches:
+        raise AssertionError(f"the 3D path launched correlative_window {launches} times")
+    final_err, max_err = position_errors_3d(results, true_position)
+    if dropped:
+        raise AssertionError(f"{dropped} grid writes dropped on the 3D path")
+    return builder, results, {
+        "scans": num_scans,
+        "matched": len(results),
+        "inserted": sum(r.insertion_result is not None for r in results),
+        "wall_s": wall,
+        "scans_per_s": num_scans / wall,
+        "real_time_ratio": num_scans * 0.1 / wall,
+        "final_position_error_m": final_err,
+        "max_position_error_m": max_err,
+        "dropped_writes": dropped,
+        "launches": {"correlative_window": launches},
+    }
+
+
+def local_slam_3d_phase(device, smi):
+    """bench.py:_bench_3d's world and options (testing/bench_3d.py)
+    through both 3D local builders on `device`: the chunked frontend
+    (chunk 16, 300 scans; its first chunk rerun scan by scan on the CPU)
+    and the per-scan builder with the default options and the bench's
+    grids (100 scans; its first 8 scans rerun by a CPU copy); each with a
+    profile over warm scans."""
+    from cartographer_tpu_torch.mapping.chunked_frontend_3d import (
+        ChunkedLocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+        LocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.testing import bench_3d
+    from cartographer_tpu_torch.testing.bench_3d import bench_3d_options
+
+    events, num_scans, true_position = bench_3d.bench_3d_world()
+    chunk = 16
+    t_phase = time.perf_counter()
+
+    def chunked_builder():
+        return ChunkedLocalTrajectoryBuilder3D(
+            bench_3d_options(), {"range"}, chunk_size=chunk, device=device)
+
+    builder, _, chunked = run_3d_path(
+        chunked_builder, events, num_scans, true_position, device)
+    chunked["chunk"] = chunk
+    chunked["pool_blocks_used"] = builder._state.pg_nblocks.tolist()
+    t0 = time.perf_counter()
+    chunked.update(chunk_3d_parity(events, chunk, device))
+    chunked["cpu_parity_s"] = time.perf_counter() - t0
+    warm = first_scans(events, chunk)
+    t0 = time.perf_counter()
+    chunked["profile"] = profiled(
+        chunked_builder(), warm, first_scans(events, 2 * chunk)[len(warm):], chunk)
+    chunked["profile_s"] = time.perf_counter() - t0
+
+    options = bench_3d_options(per_scan=True)
+
+    def per_scan_builder():
+        return LocalTrajectoryBuilder3D(options, {"range"}, device=device)
+
+    _, _, per_scan = run_3d_path(
+        per_scan_builder, first_scans(events, 100), 100, true_position, device)
+    t0 = time.perf_counter()
+    per_scan.update(per_scan_3d_parity(events, options, device=device))
+    per_scan["cpu_parity_s"] = time.perf_counter() - t0
+    warm = first_scans(events, 10)
+    t0 = time.perf_counter()
+    per_scan["profile"] = profiled(
+        per_scan_builder(), warm, first_scans(events, 20)[len(warm):], 10)
+    per_scan["profile_s"] = time.perf_counter() - t0
+    r = {
+        "phase": "local_slam_3d",
+        "world": "bench.py:_bench_3d (300 scans, 1,575 points, 10 Hz, 5 m; IMU 50 Hz)",
+        "grids": "256 x 0.10 m, 128 x 0.45 m, 40 range data per submap, paged",
+        "chunked": chunked,
+        "per_scan": per_scan,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": smi,
+    }
+    emit(r)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -1271,6 +1506,7 @@ def main() -> int:
     se, per_scan_cases = sensors_phase(device, smi)
     for name, args in per_scan_cases.items():
         kernels[name] = kernel_case(name, args)
+    s3 = local_slam_3d_phase(device, smi)
 
     # Each path's launches, counted from 0 just before it was driven.
     by_path = {
@@ -1280,6 +1516,8 @@ def main() -> int:
         "sensors_per_scan": se["per_scan"]["launches"]["correlative_window"],
         "sensors_per_scan_tsdf": se["per_scan_tsdf"]["launches"]["correlative_window"],
         "sensors_map_builder_default": se["map_builder"]["launches"]["correlative_window"],
+        "local_slam_3d_chunked": s3["chunked"]["launches"]["correlative_window"],
+        "local_slam_3d_per_scan": s3["per_scan"]["launches"]["correlative_window"],
     }
     main_case = kernels["main"]
     emit({"kernels": [{

@@ -32,6 +32,14 @@ local_slam = ["mapping.imu_tracker", "mapping.motion_filter",
           "mapping.pose_graph_2d", "mapping.constraint_builder_2d",
           "ops.tsdf_raycast_2d", "ops.raycast_2d", "ops.frontend_2d",
           "ops.scan_matching.gauss_newton_2d", "sensor.voxel_filter"]
+# The 3D local-SLAM slice's modules.
+local_slam += ["mapping.hybrid_grid", "mapping.paged_grid_3d",
+               "mapping.scan_matching_3d", "mapping.submap_3d",
+               "mapping.local_trajectory_builder_3d", "mapping.chunked_frontend_3d",
+               "ops.raycast_3d", "ops.frontend_3d",
+               "ops.scan_matching.rotational_histogram",
+               "ops.scan_matching.gauss_newton_3d",
+               "ops.scan_matching.correlative_3d"]
 missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print(len(names))
@@ -69,6 +77,23 @@ def test_default_device_is_cuda_and_raises_without_it():
         frontend_2d.init_state(8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         frontend_2d.state_from_numpy({})
+    from cartographer_tpu_torch.common.config import TrajectoryBuilder3DOptions
+    from cartographer_tpu_torch.mapping.chunked_frontend_3d import (
+        ChunkedLocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+        LocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.ops import frontend_3d
+
+    opts3 = TrajectoryBuilder3DOptions()
+    for make in (
+        lambda: ChunkedLocalTrajectoryBuilder3D(opts3, {"range"}),
+        lambda: LocalTrajectoryBuilder3D(opts3, {"range"}),
+        lambda: frontend_3d.state_from_numpy({}),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
     assert resolve_device("cpu") == torch.device("cpu")
     ChunkedLocalTrajectoryBuilder2D(opts, {"range"}, device="cpu")
 
