@@ -2,13 +2,19 @@
 
 Reference: cartographer/common/task.h:31-71 and common/thread_pool.h:57-81.
 A Task is a DAG node with states NEW -> DISPATCHED -> DEPENDENCIES_COMPLETED
--> RUNNING -> COMPLETED; the pool runs a task only after all of its
-dependencies completed. The TPU engine uses this for host-side orchestration
+-> RUNNING -> COMPLETED (or FAILED, when its work item raised); the pool
+runs a task only after all of its dependencies completed. The TPU engine uses this for host-side orchestration
 of the asynchronous global-SLAM work queue; heavy math runs on device inside
 the work items.
 
 A deterministic single-threaded mode (num_threads=0) executes tasks inline
 in dependency order, which keeps tests reproducible (SURVEY.md section 4).
+
+Unlike the JAX package's copy, a work item that raises leaves its task
+FAILED with the exception kept: `Task.wait` re-raises it, so a failure on
+a pool worker (a CUDA error or an out-of-memory inside an asynchronous
+pose-graph drain) reaches the caller that waits for the task instead of
+being logged and reported as done. Dependents still run, as before.
 """
 
 from __future__ import annotations
@@ -25,6 +31,12 @@ class TaskState(enum.Enum):
     DEPENDENCIES_COMPLETED = 2
     RUNNING = 3
     COMPLETED = 4
+    FAILED = 5
+
+
+class TaskFailed(RuntimeError):
+    """Raised by Task.wait for a task whose work item raised; the work
+    item's exception is the cause."""
 
 
 class Task:
@@ -36,10 +48,21 @@ class Task:
         self._lock = threading.Lock()
         self._pool: Optional["ThreadPool"] = None
         self._completed = threading.Event()
+        self._error: Optional[BaseException] = None
 
     @property
     def state(self) -> TaskState:
         return self._state
+
+    @property
+    def done(self) -> bool:
+        """True once the work item has run, whether or not it raised."""
+        return self._state in (TaskState.COMPLETED, TaskState.FAILED)
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        """The exception the work item raised, if it did."""
+        return self._error
 
     def set_work_item(self, work_item: Callable[[], None]) -> None:
         with self._lock:
@@ -52,7 +75,7 @@ class Task:
             return
         notify = False
         with dependency._lock:
-            if dependency._state != TaskState.COMPLETED:
+            if not dependency.done:
                 with self._lock:
                     assert self._state in (TaskState.NEW, TaskState.DISPATCHED)
                     self._uncompleted_dependencies += 1
@@ -90,20 +113,26 @@ class Task:
         with self._lock:
             assert self._state == TaskState.DEPENDENCIES_COMPLETED
             self._state = TaskState.RUNNING
+        error = None
         try:
             if self._work_item is not None:
                 self._work_item()
+        except BaseException as e:
+            error = e
+            raise
         finally:
-            # The task COMPLETES even when the work item raises: a task
-            # stuck in RUNNING forever would wedge every Task.wait (the
-            # pose graph's WaitForAllComputations burns its full timeout
-            # per call — measured as a multi-minute suite hang, round 5).
-            # The exception still propagates to the executor: inline
-            # (sync) callers see it directly; pool workers log it and
-            # keep the thread alive (_work_loop).
+            # The task ends even when the work item raises (a task stuck
+            # in RUNNING would wedge every Task.wait), as FAILED with the
+            # exception kept for wait() to re-raise. The exception also
+            # propagates to the executor: inline (sync) callers see it
+            # directly; pool workers log it and keep the thread alive
+            # (_work_loop).
             dependents = []
             with self._lock:
-                self._state = TaskState.COMPLETED
+                self._error = error
+                self._state = (
+                    TaskState.COMPLETED if error is None else TaskState.FAILED
+                )
                 dependents = list(self._dependent_tasks)
                 self._dependent_tasks.clear()
             self._completed.set()
@@ -111,10 +140,15 @@ class Task:
                 task._on_dependency_completed()
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """Block until this task completes; True if it did within the
-        timeout. (Blocking wait instead of state polling — the reference
-        waits on a condition, pose_graph_2d.cc WaitForAllComputations.)"""
-        return self._completed.wait(timeout)
+        """Block until this task ends; True if it did within the timeout.
+        Raises TaskFailed (with the work item's exception as the cause)
+        if the work item raised. (Blocking wait instead of state polling —
+        the reference waits on a condition, pose_graph_2d.cc
+        WaitForAllComputations.)"""
+        ended = self._completed.wait(timeout)
+        if ended and self._error is not None:
+            raise TaskFailed("task work item raised") from self._error
+        return ended
 
 
 class ThreadPool:
@@ -180,7 +214,8 @@ class ThreadPool:
 
                 logging.getLogger(__name__).exception(
                     "Task work item raised on a pool worker; the task is "
-                    "marked completed and the worker continues."
+                    "marked FAILED (Task.wait re-raises) and the worker "
+                    "continues."
                 )
 
     def shutdown(self) -> None:

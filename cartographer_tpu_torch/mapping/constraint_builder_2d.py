@@ -557,6 +557,20 @@ class ConstraintBuilder2D:
     def num_pending(self) -> int:
         return len(self._pending)
 
+    def evict_submap(self, submap_id: SubmapId) -> None:
+        """Forget a trimmed submap's cached matcher, grid and native
+        pyramid (queued searches against it are dropped at the next
+        drain)."""
+        for cache in (
+            self._matchers, self._submap_grids, self._native_pyramids,
+            self._native_origins,
+        ):
+            cache.pop(submap_id, None)
+
+    def evict_node(self, node_id: NodeId) -> None:
+        """Forget a trimmed node's staged cloud."""
+        self._node_clouds.pop(node_id, None)
+
     def set_submap_local_pose(self, submap_id: SubmapId, pose: np.ndarray) -> None:
         self._submap_local_poses[submap_id] = np.asarray(pose)
 

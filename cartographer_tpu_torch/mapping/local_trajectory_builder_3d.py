@@ -82,7 +82,7 @@ class LocalTrajectoryBuilder3D:
         if options.pose_extrapolator.use_imu_based:
             raise NotImplementedError(
                 "LocalTrajectoryBuilder3D: the IMU-based pose extrapolator "
-                "(use_imu_based=True) comes with the port's 3D backend slice"
+                "(use_imu_based=True) comes with a later slice of the port"
             )
         self._options = options
         self._device = resolve_device(device)

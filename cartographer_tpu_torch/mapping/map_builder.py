@@ -1,20 +1,18 @@
 """MapBuilder: the library's public API facade.
 
-Port of cartographer_tpu/mapping/map_builder.py for 2D. Reference:
+Port of cartographer_tpu/mapping/map_builder.py. Reference:
 mapping/map_builder.cc:77-402 and map_builder_interface.h:44-115. Wires
 the sensor collator, per-trajectory CollatedTrajectoryBuilder ->
 GlobalTrajectoryBuilder (internal/global_trajectory_builder.cc:36-143) ->
-pose graph, plus trajectory lifecycle. The local builder is the per-scan
-LocalTrajectoryBuilder2D (the default) or, with
+pose graph (PoseGraph2D, or PoseGraph3D with use_trajectory_builder_3d),
+plus trajectory lifecycle. The local builder is the per-scan
+LocalTrajectoryBuilder2D / 3D (the default) or, with
 use_chunked_device_frontend, the chunked frontend; a configuration the
 chunked frontend does not cover falls back to the per-scan builder with a
 warning and a counter, as in the JAX package.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-the 3D route (3D local SLAM is ported, in local_trajectory_builder_3d and
-chunked_frontend_3d; the 3D pose graph and MapBuilder's 3D route come with
-the 3D backend slice), the IMU-based pose extrapolator (with the 3D
-backend, on which it builds), and serialization.
+the IMU-based pose extrapolator (use_imu_based) and serialization.
 """
 from __future__ import annotations
 
@@ -29,12 +27,16 @@ from cartographer_tpu_torch.common.config import (
 from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.common.task import ThreadPool
 from cartographer_tpu_torch.device import resolve_device
-from cartographer_tpu_torch.mapping import chunked_frontend_2d
+from cartographer_tpu_torch.mapping import chunked_frontend_2d, chunked_frontend_3d
 from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
     LocalTrajectoryBuilder2D,
     MatchingResult,
 )
+from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+    LocalTrajectoryBuilder3D,
+)
 from cartographer_tpu_torch.mapping.pose_graph_2d import PoseGraph2D
+from cartographer_tpu_torch.mapping.pose_graph_3d import PoseGraph3D
 from cartographer_tpu_torch.mapping.trimmers import PureLocalizationTrimmer
 from cartographer_tpu_torch.sensor.collator import Collator, TrajectoryCollator
 from cartographer_tpu_torch.sensor.data import (
@@ -193,19 +195,14 @@ class MapBuilder:
         assert options.use_trajectory_builder_2d != options.use_trajectory_builder_3d, (
             "Exactly one of use_trajectory_builder_2d / 3d must be set."
         )
-        if options.use_trajectory_builder_3d:
-            _not_ported(
-                "3D (use_trajectory_builder_3d): 3D local SLAM is ported "
-                "(LocalTrajectoryBuilder3D, ChunkedLocalTrajectoryBuilder3D); "
-                "MapBuilder's 3D route comes with the 3D backend slice"
-            )
         self._options = options
         self._device = resolve_device(device)
         thread_pool = None
         if options.async_pose_graph:
             thread_pool = ThreadPool(max(1, options.num_background_threads))
         self._thread_pool = thread_pool
-        self._pose_graph = PoseGraph2D(
+        pose_graph_type = PoseGraph3D if options.use_trajectory_builder_3d else PoseGraph2D
+        self._pose_graph = pose_graph_type(
             options.pose_graph, thread_pool, device=self._device
         )
         self._collator = (
@@ -231,32 +228,13 @@ class MapBuilder:
         trajectory_options: TrajectoryBuilderOptions,
         local_slam_result_callback: Optional[LocalSlamResultCallback] = None,
     ) -> int:
-        opts2d = trajectory_options.trajectory_builder_2d
-        if opts2d.pose_extrapolator.use_imu_based:
-            _not_ported("the IMU-based pose extrapolator (use_imu_based)")
         range_ids = {
             s for s in expected_sensor_ids if s.startswith("range")
         } or expected_sensor_ids
-        if not trajectory_options.use_chunked_device_frontend:
-            local_builder = LocalTrajectoryBuilder2D(
-                opts2d, range_ids, device=self._device
-            )
-        elif chunked_frontend_2d.supports(opts2d):
-            local_builder = chunked_frontend_2d.ChunkedLocalTrajectoryBuilder2D(
-                opts2d,
-                range_ids,
-                chunk_size=trajectory_options.device_frontend_chunk_size,
-                device=self._device,
-            )
+        if self._options.use_trajectory_builder_3d:
+            local_builder = self._local_builder_3d(trajectory_options, range_ids)
         else:
-            # TSDF, num_accumulated_range_data > 1 or the IMU-based
-            # extrapolator: the per-scan path, observably.
-            local_builder = _slow_path_fallback(
-                LocalTrajectoryBuilder2D(opts2d, range_ids, device=self._device),
-                "2D configuration outside the chunked device frontend's "
-                "scope (needs probability grid, num_accumulated_range_data "
-                "== 1, constant-velocity extrapolator)",
-            )
+            local_builder = self._local_builder_2d(trajectory_options, range_ids)
         trajectory_id = self._num_trajectories
         self._num_trajectories += 1
         if trajectory_options.pure_localization_trimmer is not None:
@@ -278,6 +256,47 @@ class MapBuilder:
         self._all_trajectory_builder_options[trajectory_id] = trajectory_options
         self._pose_graph.add_trajectory_if_needed(trajectory_id)
         return trajectory_id
+
+    def _local_builder_2d(self, trajectory_options, range_ids):
+        opts2d = trajectory_options.trajectory_builder_2d
+        if opts2d.pose_extrapolator.use_imu_based:
+            _not_ported("the IMU-based pose extrapolator (use_imu_based)")
+        if not trajectory_options.use_chunked_device_frontend:
+            return LocalTrajectoryBuilder2D(opts2d, range_ids, device=self._device)
+        if chunked_frontend_2d.supports(opts2d):
+            return chunked_frontend_2d.ChunkedLocalTrajectoryBuilder2D(
+                opts2d,
+                range_ids,
+                chunk_size=trajectory_options.device_frontend_chunk_size,
+                device=self._device,
+            )
+        # TSDF, num_accumulated_range_data > 1 or the IMU-based
+        # extrapolator: the per-scan path, observably.
+        return _slow_path_fallback(
+            LocalTrajectoryBuilder2D(opts2d, range_ids, device=self._device),
+            "2D configuration outside the chunked device frontend's "
+            "scope (needs probability grid, num_accumulated_range_data "
+            "== 1, constant-velocity extrapolator)",
+        )
+
+    def _local_builder_3d(self, trajectory_options, range_ids):
+        opts3d = trajectory_options.trajectory_builder_3d
+        if opts3d.pose_extrapolator.use_imu_based:
+            _not_ported("the IMU-based pose extrapolator (use_imu_based)")
+        if not trajectory_options.use_chunked_device_frontend:
+            return LocalTrajectoryBuilder3D(opts3d, range_ids, device=self._device)
+        if chunked_frontend_3d.supports(opts3d):
+            return chunked_frontend_3d.ChunkedLocalTrajectoryBuilder3D(
+                opts3d,
+                range_ids,
+                chunk_size=trajectory_options.device_frontend_chunk_size,
+                device=self._device,
+            )
+        return _slow_path_fallback(
+            LocalTrajectoryBuilder3D(opts3d, range_ids, device=self._device),
+            "3D configuration outside the chunked device frontend's scope "
+            "(needs IMU, constant-velocity extrapolator, no intensity grids)",
+        )
 
     def finish_trajectory(self, trajectory_id: int) -> None:
         self._collator.finish_trajectory(trajectory_id)

@@ -3,8 +3,8 @@
 
 Port of cartographer_tpu/mapping/pose_extrapolator_interface.py for the
 constant-velocity extrapolator. The IMU-based one builds on the 3D
-backend (its IMU integration and SPA) and comes with the 3D backend slice;
-it raises NotImplementedError until then.
+backend (its IMU integration and SPA) and comes with a later slice of the
+port; it raises NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def _require_constant_velocity(options: PoseExtrapolatorOptions) -> None:
     if options.use_imu_based:
         raise NotImplementedError(
             "the IMU-based pose extrapolator (use_imu_based=True) is not "
-            "ported yet; it comes with the 3D backend slice"
+            "ported yet; it comes with a later slice of the port"
         )
 
 

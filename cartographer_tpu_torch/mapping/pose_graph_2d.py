@@ -25,7 +25,7 @@ import enum
 import logging
 import threading
 import time as _time
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Set
 
 import numpy as np
 
@@ -73,6 +73,10 @@ class InternalSubmapData:
 
 
 class PoseGraph2D:
+    _constraint_builder_type = ConstraintBuilder2D
+    _optimization_problem_type = OptimizationProblem2D
+    _is_2d = True
+
     def __init__(self, options: PoseGraphOptions, thread_pool=None, device=None):
         """thread_pool: optional common.task.ThreadPool. When given, the
         work queue (loop closure + optimization) drains on pool threads —
@@ -85,11 +89,10 @@ class PoseGraph2D:
         self._work_lock = threading.RLock()
         self._drain_lock = threading.Lock()
         self._pending_task = None
-        self._drain_error: Optional[BaseException] = None
-        self._constraint_builder = ConstraintBuilder2D(
+        self._constraint_builder = self._constraint_builder_type(
             options.constraint_builder, device=device
         )
-        self._optimization_problem = OptimizationProblem2D(
+        self._optimization_problem = self._optimization_problem_type(
             options.optimization_problem, device=device
         )
         self._submap_data: MapById = MapById()  # SubmapId -> InternalSubmapData
@@ -100,7 +103,7 @@ class PoseGraph2D:
         self._global_localization_samplers: Dict[int, FixedRatioSampler] = {}
         self._num_nodes_since_last_loop_closure = 0
         self._trimmers: List = []
-        if options.overlapping_submaps_trimmer_2d is not None:
+        if options.overlapping_submaps_trimmer_2d is not None and self._is_2d:
             t = options.overlapping_submaps_trimmer_2d
             self._trimmers.append(
                 OverlappingSubmapsTrimmer2D(
@@ -424,12 +427,12 @@ class PoseGraph2D:
             return
         # Schedule at most one drain at a time (DrainWorkQueue semantics):
         # the check and the set happen under the work lock, so two callers
-        # (add_node, wait_for_all_computations) cannot both schedule.
+        # (add_node, wait_for_all_computations) cannot both schedule. A
+        # drain that FAILED stays pending, so wait_for_all_computations
+        # re-raises its error instead of a later drain replacing it.
         with self._work_lock:
-            if (
-                self._pending_task is not None
-                and self._pending_task.state != TaskState.COMPLETED
-            ):
+            task = self._pending_task
+            if task is not None and task.state != TaskState.COMPLETED:
                 return
             task = Task(self._locked_handle_work_queue)
             self._pending_task = task
@@ -452,25 +455,19 @@ class PoseGraph2D:
         # (reference: constraint searches are thread-pool tasks and
         # HandleWorkQueue holds the mutex only for bookkeeping,
         # constraint_builder_2d.cc:102-136, pose_graph_2d.cc:520-544).
-        try:
-            new_constraints = self._run_pending()
-            with self._work_lock:
-                self._merge_constraints(new_constraints)
-                self._finish_work_queue()
-        except BaseException as e:
-            # The pool logs and swallows a failed task; keep it for
-            # wait_for_all_computations to raise.
-            self._drain_error = e
-            raise
+        new_constraints = self._run_pending()
+        with self._work_lock:
+            self._merge_constraints(new_constraints)
+            self._finish_work_queue()
 
     def wait_for_all_computations(self, timeout: float = 600.0) -> None:
         """Reference WaitForAllComputations (pose_graph_2d.cc:546-620):
         block until the in-flight drain completes and no constraint
         searches remain, waiting on task completion (not a poll) and
-        logging progress while the backend is still busy."""
+        logging progress while the backend is still busy. A drain that
+        raised on the pool re-raises here (common.task.TaskFailed)."""
         if self._thread_pool is None:
             return  # Synchronous mode: nothing in flight.
-        self._raise_drain_error()
         deadline = _time.monotonic() + timeout
         last_log = _time.monotonic()
         while _time.monotonic() < deadline:
@@ -478,7 +475,7 @@ class PoseGraph2D:
             if task is not None and task.state != TaskState.COMPLETED:
                 # Block on completion (progress-logging slices, matching
                 # the reference's periodic "constraints still being
-                # computed" report).
+                # computed" report); raises if the drain failed.
                 if not task.wait(
                     timeout=min(5.0, max(0.0, deadline - _time.monotonic()))
                 ):
@@ -491,14 +488,9 @@ class PoseGraph2D:
                         )
                         last_log = _time.monotonic()
                     continue
-            self._raise_drain_error()
             if self._constraint_builder.num_pending() == 0:
                 return
             self._dispatch_work_queue()
-
-    def _raise_drain_error(self) -> None:
-        if self._drain_error is not None:
-            raise RuntimeError("a pose graph drain failed") from self._drain_error
 
     def _compute_constraint(self, node_id: NodeId, submap_id: SubmapId) -> None:
         submap_data = self._submap_data.at(submap_id)
@@ -666,6 +658,11 @@ class PoseGraph2D:
                     node.global_pose = rigid3.compose(
                         local_to_new_global, node.constant_data.local_pose
                     )
+        self._notify_optimization()
+
+    def _notify_optimization(self) -> None:
+        """The global SLAM optimization callback, with the last optimized
+        submap and node id per trajectory."""
         if self._global_slam_optimization_callback is not None:
             last_submaps = {}
             last_nodes = {}
@@ -713,8 +710,11 @@ class TrimmingHandle:
     def trim_submap(self, submap_id: SubmapId) -> None:
         """pose_graph_2d.cc TrimmingHandle::TrimSubmap: drop the submap, its
         constraints, and the nodes only connected to it, and evict the
-        constraint builder's caches of the submap (queued searches against
-        it are dropped at the next drain)."""
+        constraint builder's caches of the submap and of those nodes
+        (queued searches against the submap are dropped at the next
+        drain). The JAX package keeps the trimmed nodes' staged clouds,
+        so its cache grows without bound under the pure-localization
+        trimmer."""
         pg = self._pose_graph
         if pg._submap_data.at(submap_id).state != SubmapState.FINISHED:
             raise ValueError(f"trim_submap: {submap_id} is not finished")
@@ -732,13 +732,11 @@ class TrimmingHandle:
         pg._submap_data.trim(submap_id)
         pg._optimization_problem.trim_submap(submap_id)
         cb = pg._constraint_builder
-        for cache in (
-            cb._matchers, cb._submap_grids, cb._native_pyramids, cb._native_origins,
-        ):
-            cache.pop(submap_id, None)
+        cb.evict_submap(submap_id)
         for node_id in orphaned:
             pg._trajectory_nodes.trim(node_id)
             pg._optimization_problem.trim_trajectory_node(node_id)
+            cb.evict_node(node_id)
 
 
 def replay_nodes(pose_graph: PoseGraph2D, trajectory_id: int, records, submaps, device):

@@ -1,7 +1,8 @@
 """3D scan-match refinement: 6-DoF Levenberg-Marquardt on the device.
 
-Port of `match_3d`, `match_3d_intensity`, `interp_smoothstep_3d` and
-their helpers from cartographer_tpu/ops/scan_matching/gauss_newton_3d.py.
+Port of `match_3d`, `match_3d_intensity`, `match_3d_batch`,
+`interp_smoothstep_3d` and their helpers from
+cartographer_tpu/ops/scan_matching/gauss_newton_3d.py.
 Reference: internal/3d/scan_matching/ceres_scan_matcher_3d.cc with
 residuals from occupied_space_cost_function_3d.h:34-77 (per point 1 - p,
 p interpolated from the grid with the smoothstep tensor product of
@@ -20,6 +21,12 @@ smoothstep weights' derivative, the derivative of q0 * exp(r) applied to
 each point, the yaw mask) where the JAX package uses jacfwd. The loop runs
 `max_iterations` steps and freezes its carry once it converged, which
 gives the JAX while_loop's result with no host synchronisation.
+
+`match_3d_batch` runs the same LM over K lanes at once (a loop-closure
+drain's refinements, the JAX package's vmap): every quantity carries a
+leading lane axis, each lane reads its own volumes from one stack of the
+drain's unique submap grids by index (no per-lane copies), and each lane
+freezes on its own convergence.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import functools
 
 import torch
 
+from cartographer_tpu_torch.mapping import probability_values as pv
+from cartographer_tpu_torch.mapping.hybrid_grid import log_odds_to_probability
 from cartographer_tpu_torch.mapping.paged_grid_3d import gather_probability_cells
 from cartographer_tpu_torch.ops import frontend_common as fc
 from cartographer_tpu_torch.ops.scan_matching.gauss_newton_2d import (
@@ -71,14 +80,15 @@ def _quat_exp(r, with_jacobian: bool = False):
 
 
 def _left_product_matrix(q):
-    """The [4, 4] matrix M(q) with q * p = M(q) p for quaternions p."""
-    w, x, y, z = q[0], q[1], q[2], q[3]
+    """The [..., 4, 4] matrix M(q) with q * p = M(q) p for quaternions p
+    [..., 4]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack([
-        torch.stack([w, -x, -y, -z]),
-        torch.stack([x, w, -z, y]),
-        torch.stack([y, z, w, -x]),
-        torch.stack([z, -y, x, w]),
-    ])
+        torch.stack([w, -x, -y, -z], dim=-1),
+        torch.stack([x, w, -z, y], dim=-1),
+        torch.stack([y, z, w, -x], dim=-1),
+        torch.stack([z, -y, x, w], dim=-1),
+    ], dim=-2)
 
 
 def _solve_spd(a, b):
@@ -488,3 +498,256 @@ def match_3d_intensity(
         ),
         use_nonmonotonic_steps=use_nonmonotonic_steps,
     )
+
+
+# -- K lanes at once (match_3d_batch) ---------------------------------------
+
+
+def _quat_exp_lanes(r):
+    """_quat_exp over lanes r [K, 3]: (q [K, 4], d q / d r [K, 4, 3])."""
+    theta2 = torch.sum(r * r, dim=1, keepdim=True)
+    theta = torch.sqrt(theta2 + 1e-32)
+    half = 0.5 * theta
+    small = theta2 < 1e-12
+    sin_h, cos_h = torch.sin(half), torch.cos(half)
+    k = torch.where(small, 0.5 - theta2 / 48.0, sin_h / theta)
+    w = torch.where(small, 1.0 - theta2 / 8.0, cos_h)
+    dk_dtheta = (cos_h * 0.5 * theta - sin_h) / (theta * theta)
+    dk = torch.where(small, -r / 24.0, dk_dtheta * r / theta)  # [K, 3]
+    dw = torch.where(small, -r / 4.0, -sin_h * 0.5 * r / theta)  # [K, 3]
+    eye = torch.eye(3, dtype=r.dtype, device=r.device)
+    dv = k[:, :, None] * eye + r[:, :, None] * dk[:, None, :]
+    return torch.cat([w, r * k], dim=1), torch.cat([dw[:, None, :], dv], dim=1)
+
+
+def _rotate_jacobian_lanes(q, points):
+    """_rotate_jacobian over lanes: q [K, 4], points [K, N, 3] ->
+    [K, N, 3, 4]."""
+    qw, qv = q[:, None, 0:1], q[:, None, 1:4]
+    t = 2.0 * fc._cross(qv, points)  # [K, N, 3]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    dt = 2.0 * fc._cross(eye[:, None, None, :], points[None])  # [3 (a), K, N, 3]
+    d_v = qw * dt + fc._cross(eye[:, None, None, :], t[None]) + fc._cross(qv, dt)
+    return torch.stack([t, d_v[0], d_v[1], d_v[2]], dim=-1)
+
+
+def _solve_spd_lanes(a, b):
+    """_solve_spd over lanes: a [K, n, n], b [K, n]."""
+    n = a.shape[-1]
+    chol = torch.zeros_like(a)
+    for j in range(n):
+        s = a[:, j:, j]
+        if j:
+            s = s - (chol[:, j:, :j] @ chol[:, j, :j, None])[:, :, 0]
+        d = torch.sqrt(torch.clamp(s[:, 0], min=1e-20))
+        chol[:, j:, j] = torch.cat([d[:, None], s[:, 1:] / d[:, None]], dim=1)
+    y = torch.linalg.solve_triangular(chol, b[:, :, None], upper=False)
+    return torch.linalg.solve_triangular(chol.transpose(1, 2), y, upper=True)[:, :, 0]
+
+
+class _LaneGrid:
+    """One occupied-space block's inputs for K lanes: the stacked volumes
+    [G, D, H, W] (dense f32 probability or int8 log-odds) read by lane
+    through `volume_index` [K], and each lane's origin [K, 3], resolution
+    [K], points [K, N, 3] and mask [K, N]."""
+
+    def __init__(self, vols, volume_index, origin, res, points, mask):
+        _, d, h, w = vols.shape
+        self.flat = vols.reshape(-1)
+        self.int8 = vols.dtype == torch.int8
+        self.lane_base = volume_index.to(torch.int64) * (d * h * w)
+        self.upper = torch.tensor((w - 1, h - 1, d - 1), dtype=torch.int32, device=vols.device)
+        self.strides = torch.tensor((1, w, w * h), dtype=torch.int64, device=vols.device)
+        self.origin, self.res = origin, res
+        self.points, self.mask = points, mask
+
+    def coords(self, t, q):
+        world = fc.qrot(q[:, None, :], self.points) + t[:, None, :]
+        return scaled(world - self.origin[:, None, :], self.res[:, None, None])
+
+    def corners(self, base):
+        """Corner probabilities [8, K, N] around base cells [K, N, 3]."""
+        cells = base[None] + _corner_offsets(base.device)[:, None]  # [8, K, N, 3]
+        oob = torch.any((cells < 0) | (cells > self.upper), dim=-1)
+        c = torch.clamp(cells, min=0).minimum(self.upper).long()
+        flat = torch.sum(c * self.strides, dim=-1) + self.lane_base[None, :, None]
+        vals = self.flat[flat]
+        if self.int8:
+            vals = log_odds_to_probability(vals)
+        return torch.where(oob, pv.MIN_PROBABILITY, vals)
+
+    def evaluate(self, t, q):
+        uvw = self.coords(t, q)
+        base = torch.floor(uvw).to(torch.int32)
+        corners = self.corners(base)
+        k, n = base.shape[:2]
+        frac = (uvw - base.to(uvw.dtype)).reshape(-1, 3)
+        return (base, corners), _interp(corners.reshape(8, -1), frac).reshape(k, n)
+
+    def value(self, pack, t, q, with_gradient=False):
+        base, corners = pack
+        uvw = self.coords(t, q)
+        k, n = base.shape[:2]
+        frac = (uvw - base.to(uvw.dtype)).reshape(-1, 3)
+        out = _interp(corners.reshape(8, -1), frac, with_gradient)
+        if not with_gradient:
+            return out.reshape(k, n)
+        value, grad = out
+        return value.reshape(k, n), scaled(grad.reshape(k, n, 3), self.res[:, None, None])
+
+
+class _LaneResiduals:
+    """_Residuals over K lanes (no intensity block)."""
+
+    def __init__(self, grids, initial_quat, target_translation,
+                 occupied_space_weight_0, occupied_space_weight_1,
+                 translation_weight, rotation_weight, only_optimize_yaw):
+        dev = target_translation.device
+        f32 = torch.float32
+        self.grids = grids
+        self.weights = [
+            weight / torch.sqrt(torch.clamp(torch.sum(g.mask, dim=1), min=1).to(f32))
+            for g, weight in zip(grids, (occupied_space_weight_0, occupied_space_weight_1))
+        ]
+        self.rot_mask = torch.ones(3, dtype=f32, device=dev)
+        if only_optimize_yaw:
+            self.rot_mask = torch.zeros(3, dtype=f32, device=dev)
+            self.rot_mask[2] = 1.0
+        self.q0_left = _left_product_matrix(initial_quat.to(f32))  # [K, 4, 4]
+        self.target = target_translation
+        self.translation_weight = translation_weight
+        self.rotation_weight = rotation_weight
+        extra = torch.zeros((6, 6), dtype=f32, device=dev)
+        extra[:3, :3] = translation_weight * torch.eye(3, dtype=f32, device=dev)
+        extra[3:, 3:] = torch.diag(rotation_weight * self.rot_mask)
+        self.extra_jac = extra.expand(target_translation.shape[0], 6, 6)
+
+    def decode(self, x, with_jacobian=False):
+        t, r = x[:, :3], x[:, 3:6] * self.rot_mask
+        e, de = _quat_exp_lanes(r)
+        raw = (self.q0_left @ e[:, :, None])[:, :, 0]
+        norm = torch.linalg.norm(raw, dim=1, keepdim=True)
+        if not with_jacobian:
+            return t, raw / norm, r
+        d_raw = self.q0_left @ de  # [K, 4, 3]
+        dq = d_raw / norm[:, :, None] - raw[:, :, None] * (
+            (raw[:, None, :] @ d_raw) / norm[:, :, None] ** 3
+        )
+        return t, raw / norm, r, dq * self.rot_mask
+
+    def _assemble(self, t, r, values, grads=None, q=None, dq=None):
+        parts, jacs = [], []
+        for i, (g, value) in enumerate(zip(self.grids, values)):
+            w = self.weights[i][:, None]
+            parts.append(torch.where(g.mask, w * (1.0 - value), 0.0))
+            if grads is not None:
+                d_value = torch.where(g.mask, -w, 0.0)
+                d_world_dr = _rotate_jacobian_lanes(q, g.points) @ dq[:, None]  # [K, N, 3, 3]
+                g_w = grads[i] * d_value[:, :, None]  # [K, N, 3]
+                jacs.append(torch.cat(
+                    [g_w, torch.einsum("knc,kncj->knj", g_w, d_world_dr)], dim=2
+                ))
+        parts.append(self.translation_weight * (t - self.target))
+        parts.append(self.rotation_weight * r)
+        if grads is None:
+            return torch.cat(parts, dim=1)
+        return torch.cat(parts, dim=1), torch.cat(jacs + [self.extra_jac], dim=1)
+
+    def evaluate(self, x):
+        t, q, r = self.decode(x)
+        packs, values = zip(*(g.evaluate(t, q) for g in self.grids))
+        res = self._assemble(t, r, values)
+        return list(packs), 0.5 * torch.sum(res * res, dim=1)
+
+    def residuals_and_jacobian(self, x, packs):
+        t, q, r, dq = self.decode(x, True)
+        values, grads = zip(*(
+            g.value(p, t, q, with_gradient=True) for g, p in zip(self.grids, packs)
+        ))
+        return self._assemble(t, r, values, grads, q, dq)
+
+
+def match_3d_batch(
+    high_prob,  # [G, D, H, W] volumes (f32 probability or int8 log-odds)
+    high_origin,  # [K, 3]
+    low_prob,  # [G, Dl, Hl, Wl]
+    low_origin,  # [K, 3]
+    initial_translation,  # [K, 3]
+    initial_quat,  # [K, 4]
+    target_translation,  # [K, 3]
+    high_points,  # [K, N, 3]
+    high_mask,  # [K, N]
+    low_points,  # [K, Nl, 3]
+    low_mask,  # [K, Nl]
+    high_resolution,  # [K]
+    low_resolution,  # [K]
+    occupied_space_weight_0: float,
+    occupied_space_weight_1: float,
+    translation_weight: float,
+    rotation_weight: float,
+    max_iterations: int = 12,
+    only_optimize_yaw: bool = False,
+    use_nonmonotonic_steps: bool = False,
+    volume_index=None,  # [K] lane -> volume; None: lane k reads volume k
+):
+    """The dual-grid LM refinement of a drain's accepted matches, all K
+    lanes at once (the JAX package's vmap of _match_3d_impl). Returns [K,
+    8] packed rows [t(3), q(4), cost]."""
+    dev = high_points.device
+    f32 = torch.float32
+    k = high_points.shape[0]
+    if volume_index is None:
+        volume_index = torch.arange(k, device=dev)
+    grids = [
+        _LaneGrid(high_prob, volume_index, high_origin, high_resolution, high_points, high_mask),
+        _LaneGrid(low_prob, volume_index, low_origin, low_resolution, low_points, low_mask),
+    ]
+    problem = _LaneResiduals(
+        grids, initial_quat, target_translation,
+        occupied_space_weight_0, occupied_space_weight_1,
+        translation_weight, rotation_weight, only_optimize_yaw,
+    )
+    x = torch.cat([initial_translation.to(f32), torch.zeros((k, 3), dtype=f32, device=dev)], dim=1)
+    packs, cost = problem.evaluate(x)
+    lam = torch.full_like(cost, 1e-4)
+    done = torch.zeros_like(cost, dtype=torch.bool)
+    ev = nonmonotonic_init(cost)
+    eye = torch.eye(6, dtype=f32, device=dev)
+    for _ in range(max_iterations):
+        r, jac = problem.residuals_and_jacobian(x, packs)
+        jac_t = jac.transpose(1, 2)
+        jtj = jac_t @ jac
+        jtr = (jac_t @ r[:, :, None])[:, :, 0]
+        diag = torch.diagonal(jtj, dim1=1, dim2=2)
+        damped = jtj + lam[:, None, None] * (eye * (diag + 1e-9)[:, None, :])
+        delta = -_solve_spd_lanes(damped, jtr)
+        new_x = x + delta
+        new_packs, new_cost = problem.evaluate(new_x)
+        if use_nonmonotonic_steps:
+            quad = (delta[:, None, :] @ jtj @ delta[:, :, None])[:, 0, 0]
+            model_cost_change = -(torch.sum(jtr * delta, dim=1) + 0.5 * quad)
+            mcc = torch.clamp(model_cost_change, min=1e-30)
+            quality = nonmonotonic_quality(ev, cost, new_cost, mcc)
+            accept = (model_cost_change > 0.0) & (quality > 1e-3)
+            new_ev = nonmonotonic_accepted(ev, new_cost, mcc, accept & ~done)
+        else:
+            accept = new_cost < cost
+        converged = (accept & (torch.abs(cost - new_cost) <= 1e-6 * cost)) | (
+            ~accept & (lam > 1e3)
+        )
+        accept = accept & ~done  # a converged lane's carry is frozen
+        x = torch.where(accept[:, None], new_x, x)
+        packs = [
+            (torch.where(accept[:, None, None], nb, ob),
+             torch.where(accept[None, :, None], nc, oc))
+            for (nb, nc), (ob, oc) in zip(new_packs, packs)
+        ]
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(
+            done, lam, torch.where(accept, torch.clamp(lam * 0.5, min=1e-12), lam * 4.0)
+        )
+        if use_nonmonotonic_steps:
+            ev = new_ev
+        done = done | converged
+    t, q, _ = problem.decode(x)
+    return torch.cat([t, q, cost[:, None]], dim=1)

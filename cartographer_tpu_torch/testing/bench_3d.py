@@ -1,7 +1,8 @@
 """The JAX package's 3D local-SLAM bench setting (bench.py:_bench_3d,
 bench.py:313-391), built from the port's own modules: the world and the
-options that `chip_smoke.py`'s local_slam_3d phase and
-`testing/op_count.py` drive."""
+options that `chip_smoke.py`'s local_slam_3d and backend_3d phases and
+`testing/op_count.py` drive, and the 3D loop-closure drain options of
+bench.py:_bench_bnb3 (bench.py:811-945)."""
 
 from __future__ import annotations
 
@@ -9,9 +10,14 @@ import numpy as np
 
 from cartographer_tpu_torch.common.config import (
     AdaptiveVoxelFilterOptions,
+    ConstraintBuilderOptions,
+    FastCorrelativeScanMatcherOptions3D,
+    MapBuilderOptions,
     MotionFilterOptions,
+    PoseGraphOptions,
     SubmapsOptions3D,
     TrajectoryBuilder3DOptions,
+    TrajectoryBuilderOptions,
 )
 from cartographer_tpu_torch.sensor.data import ImuData
 from cartographer_tpu_torch.testing.synthetic import (
@@ -74,3 +80,43 @@ def bench_3d_options(per_scan: bool = False) -> TrajectoryBuilder3DOptions:
         ),
         submaps=submaps,
     )
+
+
+def backend_3d_options(optimize_every_n_nodes: int = 15, num_range_data: int = 20):
+    """MapBuilder's 3D route as chip_smoke.py's backend_3d phase drives it:
+    the default PoseGraphOptions (3D constraint builder: BnB depth 8,
+    full-resolution depth 3, 5 m / 1 m / 15 degree windows, the native
+    search) with the asynchronous pose graph and `optimize_every_n_nodes`;
+    the per-scan LocalTrajectoryBuilder3D with the bench's grids, the
+    motion filter of the bench's drain workload (bench.py:721-728: 0.2 s,
+    0.05 m, 0.1 rad) and `num_range_data` per submap (the bench's 40 cut
+    to 20, so that submaps finish within the scans fed)."""
+    pose_graph = PoseGraphOptions(optimize_every_n_nodes=optimize_every_n_nodes)
+    trajectory = bench_3d_options(per_scan=True)
+    trajectory.submaps.num_range_data = num_range_data
+    trajectory.motion_filter = MotionFilterOptions(
+        max_time_seconds=0.2, max_distance_meters=0.05, max_angle_radians=0.1
+    )
+    return (
+        MapBuilderOptions(
+            use_trajectory_builder_2d=False, use_trajectory_builder_3d=True,
+            pose_graph=pose_graph, async_pose_graph=True,
+        ),
+        TrajectoryBuilderOptions(trajectory_builder_3d=trajectory),
+    )
+
+
+def bnb3_drain_options(backend: str) -> ConstraintBuilderOptions:
+    """bench.py:_bench_bnb3's drain: every search kept (sampling 1, no
+    distance gate), min_score 0.35, depth 8 with min_rotational_score 0.5
+    and min_low_resolution_score 0.35, the default windows."""
+    options = ConstraintBuilderOptions()
+    options.sampling_ratio = 1.0
+    options.max_constraint_distance = 1e6
+    options.min_score = 0.35
+    options.loop_closure_backend = backend
+    options.fast_correlative_scan_matcher_3d = FastCorrelativeScanMatcherOptions3D(
+        branch_and_bound_depth=8, min_rotational_score=0.5,
+        min_low_resolution_score=0.35,
+    )
+    return options

@@ -37,7 +37,7 @@ exits non-zero:
    CPU.
 6. sensors: the slice's world with IMU at 100 Hz and odometry at 50 Hz
    (made from the figure-eight's ground truth) through four paths on
-   cuda: the chunked frontend (300 scans; its first two chunks rerun scan
+   cuda: the chunked frontend (200 scans; its first two chunks rerun scan
    by scan on the CPU), the per-scan LocalTrajectoryBuilder2D on a
    probability grid (150 scans) and on a TSDF (100 scans), each with its
    first 8 scans rerun by a CPU copy of the builder, and MapBuilder with
@@ -52,14 +52,29 @@ exits non-zero:
    semicircle wall, 1,575 points a scan, 10 Hz, 5 m of travel; IMU at
    50 Hz) through both 3D local builders on cuda, with paged grids of 256
    cells at 0.10 m and 128 at 0.45 m and 40 range data per submap: the
-   chunked frontend (chunk 16, 300 scans, the bench's filters and motion
+   chunked frontend (chunk 16, the first 200 scans, the bench's filters and motion
    filter; its first chunk rerun scan by scan on the CPU from the GPU's
    state) and the per-scan LocalTrajectoryBuilder3D with the default
    options (100 scans; its first 8 scans rerun by a CPU copy): scans/s,
    real-time ratio, final and max position error against ground truth
    (limit 0.5 m), dropped grid writes (must be 0), a profile over warm
    scans, and window-sum launches (0: no 2D kernel on the 3D paths).
-8. kernels: one line with every kernel's numbers (the main case) and the
+8. backend_3d: MapBuilder's 3D route on cuda (per-scan builder, PoseGraph3D
+   with asynchronous drains, the native 3D branch-and-bound, the batched
+   dual-grid LM refinement, SPA 3D) over the first 150 scans of the
+   local_slam_3d world with the default PoseGraphOptions
+   (testing/bench_3d.backend_3d_options): nodes, submaps, constraints by
+   tag, searches, solves, feed and catch-up times, node error after the
+   final optimization (limit 0.5 m); then drains at bench.py:_bench_bnb3's
+   shapes on a submap the run finished (native 16 x 8 and 64 x 8, device
+   2 x 8), device against native on the same searches, one device drain
+   on the card against the CPU, the run's first SPA problem re-solved on
+   the CPU (the final
+   one as a record), and profiles of a drain of each backend and of the
+   final solve.
+   No hand-written kernel runs there: window-sum launches 0.
+9. seconds: each phase's wall seconds.
+10. kernels: one line with every kernel's numbers (the main case) and the
    launches of each path above.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -1223,10 +1238,11 @@ def sensors_phase(device, smi):
     events = sensor_events(measurements)
     t_phase = time.perf_counter()
 
+    # 200 of the world's 300 scans: a depth cut for the script's time limit.
     results, chunked = timed_run(
         lambda: ChunkedLocalTrajectoryBuilder2D(
             sensor_options(), {"range"}, chunk_size=chunk, device=device),
-        events, len(measurements), time_step, true_poses, device,
+        first_scans(events, 200), 200, time_step, true_poses, device,
     )
     require_launches(chunked["launches"]["correlative_window"], len(results),
                      "matched scans")
@@ -1255,8 +1271,15 @@ def sensors_phase(device, smi):
 # -- local_slam_3d: the 3D frontends at the JAX package's 3D bench setting
 
 
-def quat_angle(a, b) -> float:
-    return 2.0 * float(np.arccos(min(1.0, abs(float(np.dot(a, b))))))
+def rotation_angle(a, b) -> float:
+    """The angle of the rotation between unit quaternions a and b, exact
+    near 0 (arccos of a float32 dot product is not: a quaternion against
+    itself reads up to 5e-4 rad)."""
+    from cartographer_tpu_torch.transform import rigid3
+
+    a, b = (rigid3.quat_normalize(np.asarray(q, np.float64)) for q in (a, b))
+    d = rigid3.quat_multiply(rigid3.quat_conjugate(a), b)
+    return 2.0 * float(np.arctan2(np.linalg.norm(d[1:]), abs(d[0])))
 
 
 def position_errors_3d(results, true_position, limit=0.5):
@@ -1305,7 +1328,7 @@ def chunk_3d_parity(events, num_scans, device="cuda"):
         xyz = slice(S["est_x"], S["est_z"] + 1)
         quat = slice(S["est_qw"], S["est_qz"] + 1)
         d_m = float(np.max(np.abs(g[xyz] - c[xyz])))
-        d_rad = quat_angle(g[quat], c[quat])
+        d_rad = rotation_angle(g[quat], c[quat])
         if d_m > 1e-3 or d_rad > 1e-3:
             raise AssertionError(
                 f"3D scan {len(steps)}: GPU/CPU poses differ by {d_m:.2e} m, {d_rad:.2e} rad")
@@ -1348,7 +1371,7 @@ def per_scan_3d_parity(events, options, num_scans=8, device="cuda"):
         if g is None:
             continue
         worst_m = max(worst_m, float(np.max(np.abs(g.local_pose[:3] - c.local_pose[:3]))))
-        worst_rad = max(worst_rad, quat_angle(g.local_pose[3:7], c.local_pose[3:7]))
+        worst_rad = max(worst_rad, rotation_angle(g.local_pose[3:7], c.local_pose[3:7]))
         compared += 1
     if worst_m > 1e-3 or worst_rad > 1e-3:
         raise AssertionError(
@@ -1412,7 +1435,7 @@ def run_3d_path(make_builder, events, num_scans, true_position, device):
 def local_slam_3d_phase(device, smi):
     """bench.py:_bench_3d's world and options (testing/bench_3d.py)
     through both 3D local builders on `device`: the chunked frontend
-    (chunk 16, 300 scans; its first chunk rerun scan by scan on the CPU)
+    (chunk 16, 200 scans; its first chunk rerun scan by scan on the CPU)
     and the per-scan builder with the default options and the bench's
     grids (100 scans; its first 8 scans rerun by a CPU copy); each with a
     profile over warm scans."""
@@ -1433,8 +1456,9 @@ def local_slam_3d_phase(device, smi):
         return ChunkedLocalTrajectoryBuilder3D(
             bench_3d_options(), {"range"}, chunk_size=chunk, device=device)
 
+    # 200 of the world's 300 scans: a depth cut for the script's time limit.
     builder, _, chunked = run_3d_path(
-        chunked_builder, events, num_scans, true_position, device)
+        chunked_builder, first_scans(events, 200), 200, true_position, device)
     chunked["chunk"] = chunk
     chunked["pool_blocks_used"] = builder._state.pg_nblocks.tolist()
     t0 = time.perf_counter()
@@ -1474,6 +1498,424 @@ def local_slam_3d_phase(device, smi):
     return r
 
 
+# -- backend_3d: MapBuilder's 3D route and the 3D loop-closure drains
+
+# Scans of the local_slam_3d phase's world that the 3D MapBuilder is fed
+# (a depth cut from 300, to keep the phase within its time budget).
+BACKEND_3D_SCANS = 150
+
+
+def device_profile(fn, units):
+    """Run `fn()` under torch.profiler (device activity only): kernels per
+    unit, device busy and idle share over the wall time, the costliest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {
+        "units": units,
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "kernels": len(kernels),
+        "kernels_per_unit": len(kernels) / units,
+        "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
+    }
+
+
+def map_builder_3d_part(device):
+    """MapBuilder's 3D route on `device` (testing/bench_3d.backend_3d_options)
+    over the first BACKEND_3D_SCANS scans of the local_slam_3d world:
+    node error against the truth after the final optimization (limit 0.5
+    m, 0.1 x the world's 5 m travel), constraints by tag, searches,
+    solves. Returns the line, the pose graph and the recorded solves."""
+    from cartographer_tpu_torch import metrics
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.mapping.pose_graph_3d import PoseGraph3D
+    from cartographer_tpu_torch.ops import spa_solver_3d
+    from cartographer_tpu_torch.testing import bench_3d
+
+    events, num_scans, true_position = bench_3d.bench_3d_world(BACKEND_3D_SCANS)
+    mb_options, traj_options = bench_3d.backend_3d_options()
+    solve = spa_solver_3d.solve_3d
+    solves = []
+
+    def recorded_solve(problem, **kw):
+        out = solve(problem, **kw)
+        solves.append(dict(problem=problem, kw=kw, out=out))
+        return out
+
+    collected = metrics.enable_collection()
+    spa_solver_3d.solve_3d = recorded_solve
+    try:
+        mb = MapBuilder(mb_options, device=device)
+        pg = mb.pose_graph
+        if not isinstance(pg, PoseGraph3D):
+            raise AssertionError("MapBuilder's 3D route did not build a PoseGraph3D")
+        drains = []
+        cb = pg._constraint_builder
+        run_pending = cb.run_pending
+
+        def recorded_run_pending():
+            out = run_pending()
+            if cb.last_drain_timings:
+                drains.append(dict(cb.last_drain_timings))
+            return out
+
+        cb.run_pending = recorded_run_pending
+        tid = mb.add_trajectory_builder({"range", "imu"}, traj_options)
+        builder = mb.get_trajectory_builder(tid)
+        sync(device)
+        cw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for kind, _, payload in events:
+            builder.add_sensor_data(kind, payload)
+        sync(device)
+        feed_s = time.perf_counter() - t0
+        solves_in_feed = len(pg.solve_seconds)
+        t0 = time.perf_counter()
+        mb.finish_trajectory(tid)
+        sync(device)
+        catch_up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pg.run_final_optimization()
+        sync(device)
+        final_s = time.perf_counter() - t0
+        launches = cw.LAUNCHES
+        mb.shutdown()
+    finally:
+        spa_solver_3d.solve_3d = solve
+        metrics.register_family_factory(metrics.FamilyFactory())
+    registry = collected.registry()
+    searched = int(registry["mapping_constraint_builder_constraints_searched"].value())
+    nodes = list(pg.get_trajectory_nodes().items(NodeId))
+    poses = np.array([n.global_pose for _, n in nodes])
+    if not nodes or not np.all(np.isfinite(poses)):
+        raise AssertionError("no or non-finite 3D node poses")
+    errs = [float(np.linalg.norm(n.global_pose[:3] - true_position(n.constant_data.time)))
+            for _, n in nodes]
+    if max(errs) > 0.5:
+        raise AssertionError(f"3D max node error {max(errs):.3f} m > 0.5 m")
+    tags = {}
+    for c in pg.constraints:
+        tags[c.tag] = tags.get(c.tag, 0) + 1
+    if not tags.get("INTRA_SUBMAP"):
+        raise AssertionError("no INTRA_SUBMAP constraint")
+    if searched < 1:
+        raise AssertionError("the 3D constraint builder ran no loop-closure search")
+    if len(pg.solve_seconds) < 3:
+        raise AssertionError(f"only {len(pg.solve_seconds)} SPA solves")
+    if launches:
+        raise AssertionError(f"the 3D backend launched correlative_window {launches} times")
+    line = {
+        "scans": num_scans,
+        "nodes": len(nodes),
+        "submaps": len(list(pg.get_all_submap_data().items(SubmapId))),
+        "constraints": tags,
+        "searches": searched,
+        "search_backend": mb_options.pose_graph.constraint_builder.loop_closure_backend,
+        "drains": [{k: d[k] for k in ("searches", "matches", "search_s", "refine_wait_s", "total_s")}
+                   for d in drains],
+        "solves": len(pg.solve_seconds),
+        "solves_done_by_feed_end": solves_in_feed,
+        "solve_seconds": pg.solve_seconds,
+        "feed_s": feed_s,
+        "feed_scans_per_s": num_scans / feed_s,
+        "catch_up_s": catch_up_s,
+        "final_optimization_s": final_s,
+        "max_node_error_m": max(errs),
+        "final_node_error_m": errs[-1],
+        "launches": {"correlative_window": launches},
+    }
+    return line, pg, solves
+
+
+def drain_query(pg):
+    """bench.py:_bench_bnb3's search: the first finished submap of the run
+    and a node inserted into it, from its true relative pose perturbed by
+    (0.8, -0.5, 0.15) m and 0.06 rad of yaw."""
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.pose_graph_2d import SubmapState
+    from cartographer_tpu_torch.transform import rigid3
+
+    for _, data in pg.get_all_submap_data().items(SubmapId):
+        if data.state == SubmapState.FINISHED:
+            break
+    else:
+        raise AssertionError("no finished 3D submap")
+    node_ids = sorted(data.node_ids, key=lambda n: n.node_index)
+    node = pg.get_trajectory_nodes().at(node_ids[len(node_ids) // 2]).constant_data
+    rel = rigid3.relative(np.asarray(data.submap.local_pose), np.asarray(node.local_pose))
+    perturb = rigid3.make(
+        np.array([0.8, -0.5, 0.15]),
+        rigid3.quat_from_angle_axis(np.array([0.0, 0.0, 0.06])),
+    )
+    return data.submap, node, rigid3.compose(rel, perturb)
+
+
+def drain_builder(backend, device, submap, node, initial, n_nodes, n_submaps, cb=None):
+    """A ConstraintBuilder3D on `device` with bench.py's drain options (or
+    `cb` again) and n_nodes x n_submaps pending searches of `node` against
+    `submap`."""
+    from cartographer_tpu_torch.mapping.constraint_builder_3d import ConstraintBuilder3D
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.testing.bench_3d import bnb3_drain_options
+
+    if cb is None:
+        cb = ConstraintBuilder3D(bnb3_drain_options(backend), device=device)
+    for s in range(n_submaps):
+        for k in range(n_nodes):
+            cb.maybe_add_constraint(SubmapId(0, s), submap, NodeId(0, k), node, initial, 0.0)
+    return cb
+
+
+def timed_drains(backend, device, query, n_nodes, n_submaps):
+    """bench.py's drain timing: a warm drain (pyramids, caches), then the
+    best of two drains of the same builder."""
+    batch = n_nodes * n_submaps
+    cb = drain_builder(backend, device, *query, n_nodes, n_submaps)
+    found = cb.run_pending()
+    best = None
+    for _ in range(2):
+        drain_builder(backend, device, *query, n_nodes, n_submaps, cb=cb)
+        sync(device)
+        t0 = time.perf_counter()
+        found = cb.run_pending()
+        sync(device)
+        dt = time.perf_counter() - t0
+        if best is None or dt < best[0]:
+            best = (dt, dict(cb.last_drain_timings))
+    dt, timings = best
+    return {
+        "shape": f"{n_nodes} nodes x {n_submaps} submaps",
+        "matches_per_s": batch / dt,
+        "drain_s": dt,
+        "search_s": timings["search_s"],
+        "refine_wait_s": timings["refine_wait_s"],
+        "constraints_found": len(found),
+    }, cb
+
+
+def exact_tie(cb, search, pose_a, pose_b) -> bool:
+    """True if two best poses of one search are candidates (a, x, y, z)
+    of equal full-resolution score that both pass the low-resolution
+    veto, as the device search scores them: the best score is not unique,
+    and the native DFS and the device beam each keep the first they meet.
+    Raises otherwise."""
+    from cartographer_tpu_torch.ops.scan_matching import fast_correlative_3d as fc3
+    from cartographer_tpu_torch.transform import rigid3
+
+    cd = search.constant_data
+    matcher = cb._matcher(search.submap_id)
+    prep = matcher._prepare(
+        search.global_node_pose, cd.rotational_scan_matcher_histogram,
+        search.gravity_yaw, cd.high_resolution_point_cloud,
+        cd.low_resolution_point_cloud, cb._options.min_score,
+    )
+    initial = prep["ctx"][2]
+
+    def candidate(pose):
+        xyz = np.round((pose[:3] - initial[:3]) / matcher._resolution).astype(int)
+        qa = rigid3.quat_multiply(pose[3:7], rigid3.quat_conjugate(rigid3.quat(initial)))
+        yaw = 2.0 * np.arctan2(qa[3], qa[0])
+        return (int(np.argmin(np.abs(prep["angles_kept"] - yaw))), *xyz.tolist())
+
+    scores, lows = fc3.candidate_scores(prep, [candidate(pose_a), candidate(pose_b)])
+    min_low = matcher._options.min_low_resolution_score
+    if scores[0] != scores[1] or min(lows) < min_low:
+        raise AssertionError(
+            f"3D searches disagree: scores {scores.tolist()}, low scores {lows.tolist()}")
+    return True
+
+
+def moved_submap(submap, device):
+    """A copy of a finished Submap3D with its grids on `device`."""
+    import dataclasses
+
+    return dataclasses.replace(submap, **{
+        name: dataclasses.replace(
+            getattr(submap, name),
+            values=getattr(submap, name).values.to(device),
+            origin=getattr(submap, name).origin.to(device),
+        )
+        for name in ("high_resolution_grid", "low_resolution_grid")
+    })
+
+
+def drains_3d_part(pg, device):
+    """Drains at bench.py:_bench_bnb3's shapes on a submap this run's 3D
+    frontend finished: native 16 x 8 and 64 x 8, device 2 x 8 (matches/s,
+    search_s, refine_wait_s); device against native on the same 16
+    searches (the same candidate, scores within 1e-6); one device drain on
+    the card against the same drain on the CPU (refined poses within 1e-4
+    m / rad); a profile of one drain of each backend."""
+    query = drain_query(pg)
+    line, warm = {}, {}
+    for backend, n_nodes in (("native", 16), ("native", 64), ("device", 2)):
+        line[f"{backend}_{n_nodes}x8"], warm[backend] = timed_drains(
+            backend, device, query, n_nodes, 8)
+    native = drain_builder("native", device, *query, 2, 8)
+    card = drain_builder("device", device, *query, 2, 8)
+    pending = list(card._pending)
+    by_native = native._run_searches_native(list(native._pending))
+    by_device = card._run_searches_device(pending)
+    score_err = 0.0
+    found = same = ties = 0
+    for s, (_, n), (_, d) in zip(pending, by_native, by_device):
+        if (n is None) != (d is None):
+            raise AssertionError("native and device 3D searches found different sets")
+        if n is None:
+            continue
+        found += 1
+        score_err = max(score_err, abs(n.score - d.score), abs(
+            n.low_resolution_score - d.low_resolution_score))
+        # One cell is 0.1 m and one angular step about 0.01 rad: a pose
+        # within 1e-6 is the same candidate (a, x, y, z).
+        if float(np.max(np.abs(n.pose - d.pose))) <= 1e-6:
+            same += 1
+            continue
+        ties += exact_tie(card, s, n.pose, d.pose)
+    if not found or score_err > 1e-6 or same + ties != found:
+        raise AssertionError(
+            f"native vs device 3D search: {found} found, {same} the same candidate, "
+            f"{ties} exact ties, scores differ by {score_err:.2e}")
+    line["device_vs_native"] = {"searches": len(pending), "found": found,
+                                "same_candidate": same, "exact_ties": ties,
+                                "max_score_err": score_err}
+
+    submap, node, initial = query
+    card = drain_builder("device", device, submap, node, initial, 2, 1)
+    cpu = drain_builder("device", "cpu", moved_submap(submap, "cpu"), node, initial, 2, 1)
+    card_z = {c.node_id: c.pose.zbar_ij for c in card.run_pending()}
+    t0 = time.perf_counter()
+    cpu_z = {c.node_id: c.pose.zbar_ij for c in cpu.run_pending()}
+    cpu_s = time.perf_counter() - t0
+    if not card_z or set(card_z) != set(cpu_z):
+        raise AssertionError("card and CPU 3D drains found different constraints")
+    worst_m = max(float(np.max(np.abs(card_z[k][:3] - cpu_z[k][:3]))) for k in card_z)
+    worst_rad = max(rotation_angle(card_z[k][3:7], cpu_z[k][3:7]) for k in card_z)
+    if worst_m > 1e-4 or worst_rad > 1e-4:
+        raise AssertionError(
+            f"card/CPU 3D drain poses differ by {worst_m:.2e} m, {worst_rad:.2e} rad")
+    line["card_vs_cpu_drain"] = {"searches": 2, "found": len(card_z), "cpu_s": cpu_s,
+                                 "max_m": worst_m, "max_rad": worst_rad}
+    for backend, n_nodes in (("native", 16), ("device", 2)):
+        cb = drain_builder(backend, device, *query, n_nodes, 8, cb=warm[backend])
+        line[f"profile_{backend}_{n_nodes}x8"] = device_profile(cb.run_pending, 1)
+    return line
+
+
+def spa_3d_re_solve(call):
+    """Re-solve one recorded SPA 3D call on the CPU: (largest translation
+    difference m, largest rotation difference rad, CPU seconds, the card's
+    and the CPU's outputs as numpy)."""
+    from cartographer_tpu_torch.ops import spa_solver_3d
+
+    def to_cpu(tables):
+        return None if tables is None else type(tables)(*[t.cpu() for t in tables])
+
+    t0 = time.perf_counter()
+    got = spa_solver_3d.solve_3d(
+        to_cpu(call["problem"]),
+        **{**call["kw"], "extras": to_cpu(call["kw"].get("extras"))},
+    )
+    cpu_s = time.perf_counter() - t0
+    card = [t.cpu().numpy() for t in call["out"]]
+    got = [t.numpy() for t in got]
+    worst_m = max(float(np.max(np.abs(card[i] - got[i]), initial=0.0)) for i in (0, 2))
+    worst_rad = max(
+        (rotation_angle(a, b) for i in (1, 3) for a, b in zip(card[i], got[i])),
+        default=0.0,
+    )
+    return worst_m, worst_rad, cpu_s, card, got
+
+
+def spa_3d_part(solves):
+    """The run's first SPA 3D problem (before loop closures: it converges
+    to one point) re-solved on the CPU, poses within 1e-4 m / rad of the
+    card's solve. The final optimization's problem is re-solved on the CPU
+    and again on the card as a record: once loop closures pull against
+    local SLAM its termination (relative cost change 1e-7, as in JAX)
+    moves with rounding noise, so card and CPU differ there by up to a few
+    1e-4 m and so do two card solves. The final solve runs once more under
+    the profiler."""
+    import torch
+
+    from cartographer_tpu_torch.ops import spa_solver_3d
+
+    first_m, first_rad, first_cpu_s, _, _ = spa_3d_re_solve(solves[0])
+    if first_m > 1e-4 or first_rad > 1e-4:
+        raise AssertionError(
+            f"SPA 3D card/CPU poses differ by {first_m:.2e} m, {first_rad:.2e} rad")
+    call = solves[-1]
+    final_m, final_rad, final_cpu_s, card, got = spa_3d_re_solve(call)
+    again = []
+    profile = device_profile(
+        lambda: again.extend(spa_solver_3d.solve_3d(call["problem"], **call["kw"])), 1)
+    repeat_m = max(float(np.max(np.abs(card[i] - again[i].cpu().numpy()), initial=0.0))
+                   for i in (0, 2))
+    first, problem = solves[0]["problem"], call["problem"]
+    return {
+        "held": {
+            "nodes": int(first.node_t.shape[0]),
+            "constraints": int(torch.sum(first.c_mask).item()),
+            "cpu_s": first_cpu_s, "cpu_max_m": first_m, "cpu_max_rad": first_rad,
+        },
+        "final": {
+            "nodes": int(problem.node_t.shape[0]),
+            "submaps": int(problem.submap_t.shape[0]),
+            "constraints": int(torch.sum(problem.c_mask).item()),
+            "imu_rows": int(torch.sum(problem.r_mask).item() + torch.sum(problem.a_mask).item()),
+            "cpu_s": final_cpu_s, "cpu_max_m": final_m, "cpu_max_rad": final_rad,
+            "card_repeat_max_m": repeat_m,
+            "cost_card": float(card[-1]), "cost_cpu": float(got[-1]),
+            "profile": profile,
+        },
+    }
+
+
+def backend_3d_phase(device, smi):
+    """MapBuilder's 3D route end to end on `device`, then the 3D
+    loop-closure drains at bench.py's shapes and one SPA 3D solve against
+    the CPU."""
+    t_phase = time.perf_counter()
+    line, pg, solves = map_builder_3d_part(device)
+    t0 = time.perf_counter()
+    drains = drains_3d_part(pg, device)
+    drains["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spa = spa_3d_part(solves)
+    spa["part_s"] = time.perf_counter() - t0
+    r = {
+        "phase": "backend_3d",
+        "world": f"local_slam_3d's world, first {BACKEND_3D_SCANS} of 300 scans",
+        "options": "default PoseGraphOptions (BnB depth 8, 5 m / 1 m / 15 deg, native "
+                   "search), async, optimize_every_n_nodes 15; per-scan builder, bench "
+                   "grids, 20 range data per submap, motion filter 0.2 s / 0.05 m / 0.1 rad",
+        "map_builder": line,
+        "drains": drains,
+        "spa": spa,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": smi,
+    }
+    emit(r)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -1499,14 +1941,24 @@ def main() -> int:
              "ptxas": {name: ptxas_usage(log) for name, log in logs.items()}}
     emit(build)
 
-    kernels = kernel_phase(device)
-    sl, real_args = slice_phase(device, smi)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernel", kernel_phase, device)
+    sl, real_args = timed("slice", slice_phase, device, smi)
     kernels["real"] = kernel_case("real", real_args)
-    be = backend_phase(device, smi)
-    se, per_scan_cases = sensors_phase(device, smi)
+    be = timed("backend", backend_phase, device, smi)
+    se, per_scan_cases = timed("sensors", sensors_phase, device, smi)
     for name, args in per_scan_cases.items():
         kernels[name] = kernel_case(name, args)
-    s3 = local_slam_3d_phase(device, smi)
+    s3 = timed("local_slam_3d", local_slam_3d_phase, device, smi)
+    b3 = timed("backend_3d", backend_3d_phase, device, smi)
+    emit({"phase": "seconds", **seconds, "card": smi})
 
     # Each path's launches, counted from 0 just before it was driven.
     by_path = {
@@ -1518,6 +1970,7 @@ def main() -> int:
         "sensors_map_builder_default": se["map_builder"]["launches"]["correlative_window"],
         "local_slam_3d_chunked": s3["chunked"]["launches"]["correlative_window"],
         "local_slam_3d_per_scan": s3["per_scan"]["launches"]["correlative_window"],
+        "backend_3d_map_builder": b3["map_builder"]["launches"]["correlative_window"],
     }
     main_case = kernels["main"]
     emit({"kernels": [{

@@ -40,6 +40,11 @@ local_slam += ["mapping.hybrid_grid", "mapping.paged_grid_3d",
                "ops.scan_matching.rotational_histogram",
                "ops.scan_matching.gauss_newton_3d",
                "ops.scan_matching.correlative_3d"]
+# The 3D backend slice's modules.
+local_slam += ["ops.spa_solver_3d", "mapping.optimization_problem_3d",
+               "ops.scan_matching.fast_correlative_3d", "native.bnb3",
+               "mapping.constraint_builder_3d", "mapping.pose_graph_3d",
+               "common.task"]
 missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print(len(names))
