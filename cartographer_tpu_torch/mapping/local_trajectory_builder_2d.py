@@ -9,9 +9,10 @@ correlative match) -> Levenberg-Marquardt grid refinement -> extrapolator
 update -> motion filter -> insertion into the two active submaps.
 
 The grids, the correlative match (the CUDA window-sum kernel on the card),
-the LM refinement and the ray-cast insertion run on the builder's device;
-sequencing, the voxel filters and the extrapolator stay on the host, as in
-the JAX package. The result types are shared with the chunked frontend.
+the LM refinement, the ray-cast insertion and the IMU-based extrapolator's
+window solve (use_imu_based) run on the builder's device; sequencing, the
+voxel filters and the constant-velocity extrapolator stay on the host, as
+in the JAX package. The result types are shared with the chunked frontend.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.common.config import TrajectoryBuilder2DOptions
 from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.device import resolve_device
+from cartographer_tpu_torch.mapping.imu_based_pose_extrapolator import (
+    ImuBasedPoseExtrapolator,
+)
 from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator_interface import (
     create_with_imu_data,
@@ -97,6 +101,8 @@ class LocalTrajectoryBuilder2D:
         active = self._active_submaps.to(device)
         twin = copy.deepcopy(self, {id(self._active_submaps): active})
         twin._device = active._device
+        if isinstance(twin._extrapolator, ImuBasedPoseExtrapolator):
+            twin._extrapolator.device = twin._device
         return twin
 
     # -- sensor feeds -------------------------------------------------------
@@ -106,7 +112,7 @@ class LocalTrajectoryBuilder2D:
             raise RuntimeError("IMU data provided but use_imu_data=False")
         if self._extrapolator is None:
             self._extrapolator = create_with_imu_data(
-                self._options.pose_extrapolator, [imu_data]
+                self._options.pose_extrapolator, [imu_data], self._device
             )
         self._extrapolator.add_imu_data(imu_data)
 
@@ -126,7 +132,7 @@ class LocalTrajectoryBuilder2D:
         time = synchronized_data.time
         if not self._options.use_imu_data and self._extrapolator is None:
             self._extrapolator = create_without_imu(
-                self._options.pose_extrapolator, time
+                self._options.pose_extrapolator, time, self._device
             )
         if self._extrapolator is None:
             # Until we've initialized the extrapolator with our first IMU

@@ -9,10 +9,11 @@ adaptive filters -> (optional correlative match) -> two-grid
 Levenberg-Marquardt match in the submap frame -> insertion + rotational
 histogram per node.
 
-The extrapolator, the voxel and adaptive filters and the histograms stay
-on the host, as in the JAX package; the grids, the correlative match and
-the LM refinement run on the builder's device. The result types are
-shared with the chunked 3D frontend.
+The constant-velocity extrapolator, the voxel and adaptive filters and
+the histograms stay on the host, as in the JAX package; the grids, the
+correlative match, the LM refinement and the IMU-based extrapolator's
+window solve (use_imu_based) run on the builder's device. The result
+types are shared with the chunked 3D frontend.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ import torch
 from cartographer_tpu_torch.common.config import TrajectoryBuilder3DOptions
 from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.device import resolve_device
+from cartographer_tpu_torch.mapping.imu_based_pose_extrapolator import (
+    ImuBasedPoseExtrapolator,
+)
 from cartographer_tpu_torch.mapping.motion_filter import MotionFilter
 from cartographer_tpu_torch.mapping.pose_extrapolator import PoseExtrapolator
 from cartographer_tpu_torch.mapping.pose_extrapolator_interface import (
@@ -79,11 +83,6 @@ class LocalTrajectoryBuilder3D:
         expected_range_sensor_ids: Set[str],
         device=None,
     ):
-        if options.pose_extrapolator.use_imu_based:
-            raise NotImplementedError(
-                "LocalTrajectoryBuilder3D: the IMU-based pose extrapolator "
-                "(use_imu_based=True) comes with a later slice of the port"
-            )
         self._options = options
         self._device = resolve_device(device)
         self._active_submaps = ActiveSubmaps3D(
@@ -107,6 +106,8 @@ class LocalTrajectoryBuilder3D:
         active = self._active_submaps.to(device)
         twin = copy.deepcopy(self, {id(self._active_submaps): active})
         twin._device = active._device
+        if isinstance(twin._extrapolator, ImuBasedPoseExtrapolator):
+            twin._extrapolator.device = twin._device
         return twin
 
     # -- sensor feeds -------------------------------------------------------
@@ -116,7 +117,7 @@ class LocalTrajectoryBuilder3D:
             self._extrapolator.add_imu_data(imu_data)
             return
         self._extrapolator = create_with_imu_data(
-            self._options.pose_extrapolator, [imu_data]
+            self._options.pose_extrapolator, [imu_data], self._device
         )
 
     def add_odometry_data(self, odometry_data: OdometryData) -> None:

@@ -11,8 +11,11 @@ use_chunked_device_frontend, the chunked frontend; a configuration the
 chunked frontend does not cover falls back to the per-scan builder with a
 warning and a counter, as in the JAX package.
 
-Not ported yet, each raising NotImplementedError where it is asked for:
-the IMU-based pose extrapolator (use_imu_based) and serialization.
+State is saved and loaded in the JAX package's two formats (io/
+serialization.py's npz records and io/pbstream_compat.py's reference
+protobuf records, both in the pbstream container); their modules are
+imported inside the four methods, so building and running a map never
+imports protobuf. A loaded state goes onto the MapBuilder's device.
 """
 from __future__ import annotations
 
@@ -184,10 +187,6 @@ def _slow_path_fallback(builder, reason: str):
     return builder
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"MapBuilder: {what} is not ported yet")
-
-
 class MapBuilder:
     def __init__(self, options: MapBuilderOptions, device=None):
         """`device=None` means CUDA; pass device="cpu" to run the
@@ -259,8 +258,6 @@ class MapBuilder:
 
     def _local_builder_2d(self, trajectory_options, range_ids):
         opts2d = trajectory_options.trajectory_builder_2d
-        if opts2d.pose_extrapolator.use_imu_based:
-            _not_ported("the IMU-based pose extrapolator (use_imu_based)")
         if not trajectory_options.use_chunked_device_frontend:
             return LocalTrajectoryBuilder2D(opts2d, range_ids, device=self._device)
         if chunked_frontend_2d.supports(opts2d):
@@ -281,8 +278,6 @@ class MapBuilder:
 
     def _local_builder_3d(self, trajectory_options, range_ids):
         opts3d = trajectory_options.trajectory_builder_3d
-        if opts3d.pose_extrapolator.use_imu_based:
-            _not_ported("the IMU-based pose extrapolator (use_imu_based)")
         if not trajectory_options.use_chunked_device_frontend:
             return LocalTrajectoryBuilder3D(opts3d, range_ids, device=self._device)
         if chunked_frontend_3d.supports(opts3d):
@@ -312,14 +307,33 @@ class MapBuilder:
             self._thread_pool.shutdown()
             self._thread_pool = None
 
-    def serialize_state(self, include_unfinished_submaps: bool = True):
-        _not_ported("serialization")
+    @property
+    def device(self):
+        return self._device
 
-    def serialize_state_pbstream(self, include_unfinished_submaps: bool = True):
-        _not_ported("serialization")
+    def serialize_state(self, include_unfinished_submaps: bool = True) -> bytes:
+        from cartographer_tpu_torch.io.serialization import serialize_state
+
+        return serialize_state(self, include_unfinished_submaps)
+
+    def serialize_state_pbstream(self, include_unfinished_submaps: bool = True) -> bytes:
+        """Reference-wire-format pbstream (io/pbstream_compat.py)."""
+        from cartographer_tpu_torch.io.pbstream_compat import write_pbstream
+
+        return write_pbstream(self, include_unfinished_submaps)
 
     def load_state_pbstream(self, state: bytes, load_frozen_state: bool = True):
-        _not_ported("serialization")
+        from cartographer_tpu_torch.io.pbstream_compat import read_pbstream
+
+        return read_pbstream(self, state, load_frozen_state)
 
     def load_state(self, state, load_frozen_state: bool = True):
-        _not_ported("serialization")
+        from cartographer_tpu_torch.io.serialization import load_state
+
+        remap = load_state(self, state, load_frozen_state)
+        # Reserve the loaded trajectory ids so new builders don't collide
+        # (map_builder.cc LoadState registers placeholder entries).
+        for new_id in remap.values():
+            self._trajectory_builders[new_id] = None
+            self._num_trajectories = max(self._num_trajectories, new_id + 1)
+        return remap

@@ -1,8 +1,8 @@
 """Voxel filters (reference: sensor/internal/voxel_filter.cc:30-200).
 
-Copy of cartographer_tpu/sensor/voxel_filter.py, its numpy path only (the
-JAX package hands clouds of more than 512 points to a C++ hash set with the
-same first-occurrence result).
+Copy of cartographer_tpu/sensor/voxel_filter.py. As there, clouds of more
+than 512 points go to the C++ hash set of csrc/native.cc (native/), which
+keeps the same first occurrence per voxel; a failed build raises.
 
 Semantics: one representative point per voxel of edge `resolution` (voxel key
 = per-axis round(p/res)); the adaptive filter binary-searches the voxel size
@@ -39,9 +39,16 @@ def _voxel_keys(points: np.ndarray, resolution: float) -> np.ndarray:
 
 
 def voxel_filter_indices(points: np.ndarray, resolution: float) -> np.ndarray:
-    """Boolean mask keeping one point per voxel (first occurrence)."""
+    """Boolean mask keeping one point per voxel (first occurrence).
+
+    Above 512 points the native C++ hash set (csrc/native.cc) computes it,
+    as in the JAX package; this numpy path is the parity reference."""
     if points.shape[0] == 0:
         return np.zeros((0,), dtype=bool)
+    if points.shape[0] > 512:
+        from cartographer_tpu_torch import native
+
+        return native.voxel_filter_indices(points, resolution)
     keys = _voxel_keys(points, resolution)
     _, first_indices = np.unique(keys, return_index=True)
     mask = np.zeros(points.shape[0], dtype=bool)

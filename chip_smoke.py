@@ -8,9 +8,9 @@ exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every source under cartographer_tpu_torch/csrc (the CUDA
-   kernels with nvcc, the native loop-closure search with the host C++
-   compiler), one compiler per source, all started together, with
-   ptxas's registers and spills per kernel.
+   kernels with nvcc, the native loop-closure searches and host kernels
+   with the host C++ compiler), one compiler per source, all started
+   together, with ptxas's registers and spills per kernel.
 3. kernel: each kernel against its plain PyTorch version on the card at
    the main path's shapes and at edge shapes; device times from CUDA
    graphs of 20 calls, single-call times with launch latency, an empty
@@ -73,8 +73,31 @@ exits non-zero:
    one as a record), and profiles of a drain of each backend and of the
    final solve.
    No hand-written kernel runs there: window-sum launches 0.
-9. seconds: each phase's wall seconds.
-10. kernels: one line with every kernel's numbers (the main case) and the
+   The backend and backend_3d phases end by serializing their maps
+   (MapBuilder.serialize_state, timed) for the next phase.
+9. persist: saved maps on cuda. The backend phase's 2D state is loaded
+   frozen into a fresh MapBuilder on cuda (trajectory 0 frozen, node poses
+   within 1e-6, every grid equal bit for bit, the same constraints),
+   re-serialized and compared record by record after decompression (only
+   the trajectory and submap states change with freezing), and loaded on
+   the CPU too (the same records). In that loaded map a new trajectory
+   (the backend phase's chunked frontend with online correlative
+   matching and the pure-localization trimmer keeping 3 submaps) is fed
+   the world's first 150 scans again, 100 s later: node error against the
+   truth in the frozen map's frame (limit 0.3 m from node 8), INTER
+   constraints to the map, submaps kept, scans/s, window-sum launches;
+   the inputs of its first window-sum call become the kernel phase's
+   "localization" case. The backend_3d phase's state is loaded on cuda
+   and on the CPU (poses within 1e-6, dense grids equal to to_dense of the
+   originals, the same records). LocalTrajectoryBuilder3D with the
+   IMU-based extrapolator runs 40 scans of the local_slam_3d world
+   (error limit 0.5 m, the first 4 scans rerun by a CPU copy within 1e-3,
+   the kernels of one extrapolator solve). The native host kernels
+   (csrc/native.cc) are timed against numpy on the phases' clouds: the
+   voxel filter on a 1024-beam 2D scan and a 1,575-point 3D scan (masks
+   equal), the rotational histogram on a 3D node's cloud.
+10. seconds: each phase's wall seconds.
+11. kernels: one line with every kernel's numbers (the main case) and the
    launches of each path above.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -825,7 +848,9 @@ def backend_phase(device, smi):
     """MapBuilder on `device` over BACKEND_WORLD: the frontend, the pose
     graph with asynchronous drains, loop closure through the device BnB and
     the batched LM, SPA, and the final optimization; then one drain and the
-    last SPA problem checked against the CPU and the native search."""
+    last SPA problem checked against the CPU and the native search. Also
+    returns the map builder, its serialized state (timed) and the world,
+    for the persist phase."""
     from cartographer_tpu_torch import metrics
     from cartographer_tpu_torch.evaluation.trajectory_metrics import aligned_ate
     from cartographer_tpu_torch.kernels import correlative_window as cw
@@ -892,6 +917,11 @@ def backend_phase(device, smi):
         final_s = time.perf_counter() - t0
         launches = cw.LAUNCHES
         mb.shutdown()
+        # The map as it stands, for the persist phase (no scan is fed
+        # again there).
+        t0 = time.perf_counter()
+        state = mb.serialize_state()
+        serialize_s = time.perf_counter() - t0
     finally:
         op2d.solve = solve
         metrics.register_family_factory(metrics.FamilyFactory())
@@ -985,10 +1015,14 @@ def backend_phase(device, smi):
         "launches": {"correlative_window": launches},
         **replay,
         **spa,
+        "state_mb": len(state) / 1e6,
+        "serialize_s": serialize_s,
         "card": smi,
     }
     emit(r)
-    return r
+    saved = dict(map_builder=mb, state=state, serialize_s=serialize_s,
+                 measurements=measurements, true_poses=true_poses)
+    return r, saved
 
 # -- sensors: IMU and odometry, the per-scan path, TSDF, MapBuilder's default
 
@@ -1540,7 +1574,9 @@ def map_builder_3d_part(device):
     over the first BACKEND_3D_SCANS scans of the local_slam_3d world:
     node error against the truth after the final optimization (limit 0.5
     m, 0.1 x the world's 5 m travel), constraints by tag, searches,
-    solves. Returns the line, the pose graph and the recorded solves."""
+    solves. Returns the line, the pose graph, the recorded solves and,
+    for the persist phase, the map builder with its serialized state
+    (timed) and the world's events."""
     from cartographer_tpu_torch import metrics
     from cartographer_tpu_torch.kernels import correlative_window as cw
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
@@ -1597,6 +1633,9 @@ def map_builder_3d_part(device):
         final_s = time.perf_counter() - t0
         launches = cw.LAUNCHES
         mb.shutdown()
+        t0 = time.perf_counter()
+        state = mb.serialize_state()
+        serialize_s = time.perf_counter() - t0
     finally:
         spa_solver_3d.solve_3d = solve
         metrics.register_family_factory(metrics.FamilyFactory())
@@ -1641,7 +1680,8 @@ def map_builder_3d_part(device):
         "final_node_error_m": errs[-1],
         "launches": {"correlative_window": launches},
     }
-    return line, pg, solves
+    saved = dict(map_builder=mb, state=state, serialize_s=serialize_s, events=events)
+    return line, pg, solves, saved
 
 
 def drain_query(pg):
@@ -1893,7 +1933,7 @@ def backend_3d_phase(device, smi):
     loop-closure drains at bench.py's shapes and one SPA 3D solve against
     the CPU."""
     t_phase = time.perf_counter()
-    line, pg, solves = map_builder_3d_part(device)
+    line, pg, solves, saved = map_builder_3d_part(device)
     t0 = time.perf_counter()
     drains = drains_3d_part(pg, device)
     drains["part_s"] = time.perf_counter() - t0
@@ -1903,6 +1943,8 @@ def backend_3d_phase(device, smi):
     r = {
         "phase": "backend_3d",
         "world": f"local_slam_3d's world, first {BACKEND_3D_SCANS} of 300 scans",
+        "state_mb": len(saved["state"]) / 1e6,
+        "serialize_s": saved["serialize_s"],
         "options": "default PoseGraphOptions (BnB depth 8, 5 m / 1 m / 15 deg, native "
                    "search), async, optimize_every_n_nodes 15; per-scan builder, bench "
                    "grids, 20 range data per submap, motion filter 0.2 s / 0.05 m / 0.1 rad",
@@ -1913,7 +1955,411 @@ def backend_3d_phase(device, smi):
         "card": smi,
     }
     emit(r)
-    return r
+    return r, saved
+
+
+# -- persist: saved maps, pure localization, the IMU-based extrapolator,
+# the native host kernels
+
+# The localization trajectory: the first scans of BACKEND_WORLD again,
+# LOCALIZATION_SHIFT seconds later (tests/test_serialization.py's
+# pure-localization scenario).
+LOCALIZATION_SCANS = 150
+LOCALIZATION_SHIFT = 100.0
+# Scans of the local_slam_3d world through the IMU-based 3D builder, and
+# how many of them a CPU copy reruns.
+IMU_BASED_SCANS = 40
+IMU_BASED_PARITY_SCANS = 4
+
+
+def state_records(state):
+    """The decompressed records of a serialized state (the container's
+    gzip headers hold the time of writing, the records do not)."""
+    import io
+
+    from cartographer_tpu_torch.io.proto_stream import ProtoStreamReader
+
+    return list(ProtoStreamReader(io.BytesIO(state)))
+
+
+def compare_reloaded_records(original, reloaded):
+    """A frozen load re-serialized against the state it loaded: every
+    record equal, except that the pose graph's trajectory states read
+    FROZEN and every submap's search state FINISHED."""
+    from cartographer_tpu_torch.io.serialization import _decode_record
+
+    a, b = state_records(original), state_records(reloaded)
+    if len(a) != len(b):
+        raise AssertionError(f"{len(b)} records re-serialized from {len(a)}")
+    changed = {}
+    for ra, rb in zip(a, b):
+        if ra == rb:
+            continue
+        (ka, ma, xa), (kb, mb, xb) = _decode_record(ra), _decode_record(rb)
+        if ka != kb or xa.keys() != xb.keys() or any(
+                xa[k].dtype != xb[k].dtype or not np.array_equal(xa[k], xb[k]) for k in xa):
+            raise AssertionError(f"a re-serialized {ka} record differs in its arrays")
+        if ka == "pose_graph":
+            if set(mb.pop("trajectory_states").values()) != {"FROZEN"}:
+                raise AssertionError("the loaded trajectories are not frozen")
+            ma.pop("trajectory_states")
+        elif ka.startswith("submap"):
+            if mb.pop("state") != "FINISHED":
+                raise AssertionError("a frozen submap is open to search")
+            ma.pop("state")
+        if ma != mb:
+            raise AssertionError(f"a re-serialized {ka} record differs: {ma} / {mb}")
+        changed[ka] = changed.get(ka, 0) + 1
+    return {"records": len(a), "records_equal": len(a) - sum(changed.values()),
+            "records_changed_by_freezing": changed}
+
+
+def load_checked(options, state, device, original_pg, grids_equal):
+    """Load `state` frozen into a fresh MapBuilder on `device` (timed) and
+    hold it against the pose graph it was saved from: trajectory 0
+    frozen, node poses within 1e-6, every submap's grids on `device` and
+    equal (`grids_equal(original submap, loaded submap)`), the same
+    constraints."""
+    import torch
+
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+
+    mb = MapBuilder(options, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    remap = mb.load_state(state, load_frozen_state=True)
+    sync(device)
+    load_s = time.perf_counter() - t0
+    pg = mb.pose_graph
+    if remap != {0: 0} or not pg.is_trajectory_frozen(0):
+        raise AssertionError(f"loaded remap {remap}, frozen {pg.is_trajectory_frozen(0)}")
+    nodes = pg.get_trajectory_nodes()
+    worst = 0.0
+    for node_id, node in original_pg.get_trajectory_nodes().items(NodeId):
+        worst = max(worst, float(np.max(np.abs(
+            nodes.at(node_id).global_pose - node.global_pose))))
+    if nodes.size() != original_pg.get_trajectory_nodes().size() or worst > 1e-6:
+        raise AssertionError(f"loaded node poses differ by {worst:.2e}")
+    submaps = pg.get_all_submap_data()
+    for submap_id, data in original_pg.get_all_submap_data().items(SubmapId):
+        loaded = submaps.at(submap_id).submap
+        grids = [getattr(loaded, n) for n in ("grid", "high_resolution_grid",
+                                               "low_resolution_grid") if hasattr(loaded, n)]
+        devices = {t.device.type for g in grids for t in vars(g).values()
+                   if isinstance(t, torch.Tensor)}
+        if devices != {torch.device(device).type}:
+            raise AssertionError(f"submap {submap_id}: loaded grids on {devices}")
+        if not grids_equal(data.submap, loaded):
+            raise AssertionError(f"submap {submap_id}: loaded grids differ")
+    if [(c.submap_id, c.node_id, c.tag) for c in pg.constraints] != [
+            (c.submap_id, c.node_id, c.tag) for c in original_pg.constraints]:
+        raise AssertionError("loaded constraints differ")
+    return mb, load_s
+
+
+def tensors_equal(a, b) -> bool:
+    """Equal bit for bit, wherever each lies."""
+    import torch
+
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def grids_2d_equal(original, loaded) -> bool:
+    a, b = original.grid, loaded.grid
+    return all(tensors_equal(getattr(a, k), getattr(b, k))
+               for k in ("log_odds", "known", "origin"))
+
+
+def grids_3d_equal(original, loaded) -> bool:
+    """The loaded dense grids equal the originals through to_dense."""
+    from cartographer_tpu_torch.mapping.paged_grid_3d import as_dense
+
+    for name in ("high_resolution_grid", "low_resolution_grid"):
+        a, b = as_dense(getattr(original, name)), getattr(loaded, name)
+        if not (tensors_equal(a.values, b.values) and tensors_equal(a.origin, b.origin)):
+            return False
+    return np.array_equal(original.rotational_scan_matcher_histogram,
+                          loaded.rotational_scan_matcher_histogram)
+
+
+def persist_2d_part(saved, device):
+    """The backend phase's map: its state loaded frozen on `device` and
+    on the CPU, each held against the map it was saved from; the card
+    load re-serialized record by record against the state and the CPU
+    load's records."""
+    mb_options, _ = backend_options()
+    state, original = saved["state"], saved["map_builder"].pose_graph
+    loaded, load_s = load_checked(mb_options, state, device, original, grids_2d_equal)
+    t0 = time.perf_counter()
+    again = loaded.serialize_state()
+    reserialize_s = time.perf_counter() - t0
+    records = compare_reloaded_records(state, again)
+    cpu, cpu_load_s = load_checked(mb_options, state, "cpu", original, grids_2d_equal)
+    if state_records(cpu.serialize_state()) != state_records(again):
+        raise AssertionError("the CPU load re-serializes to other records than the card's")
+    return loaded, {
+        "state_mb": len(state) / 1e6,
+        "serialize_s": saved["serialize_s"],
+        "load_s": load_s,
+        "reserialize_s": reserialize_s,
+        "cpu_load_s": cpu_load_s,
+        "cpu_load_records_equal": True,
+        **records,
+    }
+
+
+def localization_part(loaded, saved, device):
+    """A new trajectory in the loaded frozen map: the backend phase's
+    frontend (chunked, online correlative matching) with the
+    pure-localization trimmer keeping 3 submaps, started at the frozen
+    trajectory's origin and fed the world's first LOCALIZATION_SCANS
+    scans again, LOCALIZATION_SHIFT seconds later; then the final
+    optimization. Node error against the truth in the frozen map's frame
+    (limit 0.3 m from node STARTUP_NODES), INTER constraints to the frozen
+    trajectory, submaps kept, window-sum launches. Also returns the inputs
+    of the path's first window-sum call."""
+    import copy
+
+    from cartographer_tpu_torch.common.config import PureLocalizationTrimmerOptions
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.testing.synthetic import FAKE_START_TIME
+    from cartographer_tpu_torch.transform import rigid3
+
+    _, traj_options = backend_options()
+    options = copy.deepcopy(traj_options)
+    options.pure_localization_trimmer = PureLocalizationTrimmerOptions(max_submaps_to_keep=3)
+    time_step = BACKEND_WORLD["time_step"]
+    true_poses = saved["true_poses"]
+    pg = loaded.pose_graph
+    tid = loaded.add_trajectory_builder({"range"}, options)
+    pg.set_initial_trajectory_pose(
+        tid, 0, rigid3.identity(), FAKE_START_TIME + LOCALIZATION_SHIFT)
+    builder = loaded.get_trajectory_builder(tid)
+    measurements = copy.deepcopy(saved["measurements"][:LOCALIZATION_SCANS])
+    for m in measurements:
+        m.time += LOCALIZATION_SHIFT
+    with window_sums_inputs(0) as kept:
+        sync(device)
+        cw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for m in measurements:
+            builder.add_sensor_data("range", m)
+        sync(device)
+        feed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded.finish_trajectory(tid)
+        pg.run_final_optimization()
+        sync(device)
+        catch_up_s = time.perf_counter() - t0
+        launches = cw.LAUNCHES
+    loaded.shutdown()
+
+    def index(node):
+        t = node.constant_data.time - FAKE_START_TIME
+        return int(round((t - (LOCALIZATION_SHIFT if t >= LOCALIZATION_SHIFT else 0.0)) / time_step))
+
+    nodes = pg.get_trajectory_nodes()
+    frozen = [n for nid, n in nodes.items(NodeId) if nid.trajectory_id == 0]
+    new = [n for nid, n in nodes.items(NodeId) if nid.trajectory_id == tid]
+    if len(new) <= 2 * STARTUP_NODES:
+        raise AssertionError(f"only {len(new)} localization nodes")
+    # The truth in the frozen map's frame, anchored at the frozen
+    # trajectory's node STARTUP_NODES (past the startup transient).
+    anchor = frozen[STARTUP_NODES]
+    map_from_truth = rigid3.compose(
+        anchor.global_pose, rigid3.inverse(true_poses[index(anchor)]))
+    errs = np.array([
+        np.linalg.norm(n.global_pose[:2] - rigid3.compose(
+            map_from_truth, true_poses[index(n)])[:2]) for n in new])
+    if not np.all(np.isfinite(errs)):
+        raise AssertionError("non-finite localization pose")
+    if errs[STARTUP_NODES:].max() > 0.3:
+        raise AssertionError(
+            f"localization node error {errs[STARTUP_NODES:].max():.3f} m > 0.3 m")
+    inter = [c for c in pg.constraints if c.tag == "INTER_SUBMAP"
+             and c.node_id.trajectory_id == tid and c.submap_id.trajectory_id == 0]
+    if not inter:
+        raise AssertionError("no INTER_SUBMAP constraint from the new trajectory to the map")
+    kept_submaps = [sid for sid, _ in pg.get_all_submap_data().items(SubmapId)
+                    if sid.trajectory_id == tid]
+    if len(kept_submaps) > 3:
+        raise AssertionError(f"{len(kept_submaps)} localization submaps kept, the trimmer keeps 3")
+    require_launches(launches, 1, "localization scans")
+    return {
+        "scans": LOCALIZATION_SCANS,
+        "nodes": len(new),
+        "inter_constraints_to_map": len(inter),
+        "submaps_kept": len(kept_submaps),
+        "submaps_created": max(sid.submap_index for sid in kept_submaps) + 1,
+        "feed_s": feed_s,
+        "scans_per_s": LOCALIZATION_SCANS / feed_s,
+        "real_time_ratio": LOCALIZATION_SCANS * time_step / feed_s,
+        "catch_up_s": catch_up_s,
+        "max_node_error_m": float(errs[STARTUP_NODES:].max()),
+        "max_node_error_all_nodes_m": float(errs.max()),
+        "launches": {"correlative_window": launches},
+    }, kept[0]
+
+
+def persist_3d_part(saved, device):
+    """The backend_3d phase's map: its state loaded frozen on `device` and
+    on the CPU, each held against the map it was saved from (poses within
+    1e-6, dense grids equal to to_dense of the originals); the CPU load
+    re-serializes to the card load's records."""
+    from cartographer_tpu_torch.testing import bench_3d
+
+    mb_options, _ = bench_3d.backend_3d_options()
+    state, original = saved["state"], saved["map_builder"].pose_graph
+    loaded, load_s = load_checked(mb_options, state, device, original, grids_3d_equal)
+    cpu, cpu_load_s = load_checked(mb_options, state, "cpu", original, grids_3d_equal)
+    t0 = time.perf_counter()
+    again = loaded.serialize_state()
+    reserialize_s = time.perf_counter() - t0
+    records = compare_reloaded_records(state, again)
+    if state_records(cpu.serialize_state()) != state_records(again):
+        raise AssertionError("the CPU 3D load re-serializes to other records than the card's")
+    return loaded, {
+        "state_mb": len(state) / 1e6,
+        "serialize_s": saved["serialize_s"],
+        "load_s": load_s,
+        "reserialize_s": reserialize_s,
+        "cpu_load_s": cpu_load_s,
+        **records,
+    }
+
+
+def imu_based_part(device):
+    """LocalTrajectoryBuilder3D with the IMU-based extrapolator (its window
+    solved by SPA 3D on `device`) over the first IMU_BASED_SCANS scans of
+    the local_slam_3d world, the per-scan defaults with the bench's grids:
+    scans/s, error against the truth (limit 0.5 m), the first
+    IMU_BASED_PARITY_SCANS scans rerun by a CPU copy, and the kernels of
+    one extrapolator solve."""
+    from cartographer_tpu_torch.mapping.imu_based_pose_extrapolator import (
+        ImuBasedPoseExtrapolator,
+    )
+    from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
+        LocalTrajectoryBuilder3D,
+    )
+    from cartographer_tpu_torch.testing import bench_3d
+
+    events, num_scans, true_position = bench_3d.bench_3d_world(IMU_BASED_SCANS)
+    options = bench_3d.bench_3d_options(per_scan=True)
+    options.pose_extrapolator.use_imu_based = True
+    builder, results, line = run_3d_path(
+        lambda: LocalTrajectoryBuilder3D(options, {"range"}, device=device),
+        events, num_scans, true_position, device)
+    extrapolator = builder._extrapolator
+    if not isinstance(extrapolator, ImuBasedPoseExtrapolator) or (
+            extrapolator.device != builder._device):
+        raise AssertionError("the 3D builder did not solve with the IMU-based extrapolator")
+    line.update(per_scan_3d_parity(events, options, IMU_BASED_PARITY_SCANS, device))
+    query = results[-1].time + 0.1
+    line["solve_profile"] = device_profile(
+        lambda: extrapolator.extrapolate_poses_with_gravity([query]), 1)
+    return line
+
+
+def host_us(fn, min_s: float = 0.2) -> float:
+    """Microseconds per call of a host function (repeated for at least
+    `min_s` seconds after one warm call)."""
+    fn()
+    calls, t0 = 0, time.perf_counter()
+    while True:
+        fn()
+        calls += 1
+        elapsed = time.perf_counter() - t0
+        if elapsed >= min_s:
+            return elapsed / calls * 1e6
+
+
+def native_host_part(saved_2d, saved_3d):
+    """The native host kernels (csrc/native.cc) against the numpy paths on
+    this host, on the phases' clouds: the voxel filter on a 1024-beam 2D
+    scan and on a 1,575-point 3D scan (the masks equal), the rotational
+    histogram on a 3D node's gravity-aligned cloud (within 1e-5 of the
+    numpy walk, tests/test_native.py's tolerance)."""
+    from cartographer_tpu_torch import native
+    from cartographer_tpu_torch.mapping.id import NodeId
+    from cartographer_tpu_torch.ops.scan_matching import rotational_histogram as rh
+    from cartographer_tpu_torch.sensor import voxel_filter as vf
+    from cartographer_tpu_torch.testing import bench_3d
+    from cartographer_tpu_torch.transform import rigid3
+
+    def numpy_mask(points, resolution):
+        keys = vf._voxel_keys(points, resolution)
+        mask = np.zeros(len(points), bool)
+        mask[np.unique(keys, return_index=True)[1]] = True
+        return mask
+
+    _, traj_2d = backend_options()
+    scan_2d = np.asarray(saved_2d["measurements"][0].ranges.points, np.float32)
+    scan_3d = next(p for k, _, p in saved_3d["events"] if k == "range")
+    scan_3d = np.asarray(scan_3d.ranges.points, np.float32)
+    node = next(iter(saved_3d["map_builder"].pose_graph.get_trajectory_nodes().items(NodeId)))[1]
+    cloud = rigid3.quat_rotate(
+        np.asarray(node.constant_data.gravity_alignment)[None, :],
+        np.asarray(node.constant_data.high_resolution_point_cloud, np.float64))
+    out = {}
+    for name, points, resolution in (
+            ("voxel_filter_2d", scan_2d, traj_2d.trajectory_builder_2d.voxel_filter_size),
+            # The 3D builder's pre-filter: half its voxel filter size.
+            ("voxel_filter_3d", scan_3d,
+             0.5 * bench_3d.bench_3d_options(per_scan=True).voxel_filter_size)):
+        mask = native.voxel_filter_indices(points, resolution)
+        if not np.array_equal(mask, numpy_mask(points, resolution)):
+            raise AssertionError(f"{name}: native and numpy masks differ")
+        out[name] = {
+            "points": len(points), "kept": int(mask.sum()), "resolution": resolution,
+            "native_us": host_us(lambda: native.voxel_filter_indices(points, resolution)),
+            "numpy_us": host_us(lambda: numpy_mask(points, resolution)),
+        }
+    size = 120
+    hist = native.rotational_histogram(cloud, size)
+    oracle = rh.compute_histogram_numpy(cloud, size)
+    diff = float(np.max(np.abs(hist - oracle)))
+    if diff > 1e-5 or not np.any(hist):
+        raise AssertionError(f"rotational histogram: native and numpy differ by {diff:.2e}")
+    out["rotational_histogram"] = {
+        "points": len(cloud), "size": size, "max_abs_diff": diff,
+        "native_us": host_us(lambda: native.rotational_histogram(cloud, size)),
+        "numpy_us": host_us(lambda: rh.compute_histogram_numpy(cloud, size), min_s=1.0),
+    }
+    for line in out.values():
+        line["speedup"] = line["numpy_us"] / line["native_us"]
+    return out
+
+
+def persist_phase(device, smi, saved_2d, saved_3d):
+    """Saved maps on `device`: the backend phases' maps saved, loaded and
+    re-serialized (2D and 3D, each also loaded on the CPU), pure
+    localization in the loaded 2D map, the IMU-based 3D builder, and the
+    native host kernels against numpy. Also returns the inputs of the
+    localization path's first window-sum call."""
+    t_phase = time.perf_counter()
+    loaded, persist_2d = persist_2d_part(saved_2d, device)
+    t0 = time.perf_counter()
+    localization, localization_args = localization_part(loaded, saved_2d, device)
+    localization["part_s"] = time.perf_counter() - t0
+    _, persist_3d = persist_3d_part(saved_3d, device)
+    t0 = time.perf_counter()
+    imu_based = imu_based_part(device)
+    imu_based["part_s"] = time.perf_counter() - t0
+    native_host = native_host_part(saved_2d, saved_3d)
+    r = {
+        "phase": "persist",
+        "save_load_2d": persist_2d,
+        "localization": localization,
+        "save_load_3d": persist_3d,
+        "imu_based_3d": imu_based,
+        "native_host": native_host,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": smi,
+    }
+    emit(r)
+    return r, localization_args
 
 
 def main() -> int:
@@ -1952,12 +2398,14 @@ def main() -> int:
     kernels = timed("kernel", kernel_phase, device)
     sl, real_args = timed("slice", slice_phase, device, smi)
     kernels["real"] = kernel_case("real", real_args)
-    be = timed("backend", backend_phase, device, smi)
+    be, saved_2d = timed("backend", backend_phase, device, smi)
     se, per_scan_cases = timed("sensors", sensors_phase, device, smi)
     for name, args in per_scan_cases.items():
         kernels[name] = kernel_case(name, args)
     s3 = timed("local_slam_3d", local_slam_3d_phase, device, smi)
-    b3 = timed("backend_3d", backend_3d_phase, device, smi)
+    b3, saved_3d = timed("backend_3d", backend_3d_phase, device, smi)
+    pe, localization_args = timed("persist", persist_phase, device, smi, saved_2d, saved_3d)
+    kernels["localization"] = kernel_case("localization", localization_args)
     emit({"phase": "seconds", **seconds, "card": smi})
 
     # Each path's launches, counted from 0 just before it was driven.
@@ -1971,6 +2419,8 @@ def main() -> int:
         "local_slam_3d_chunked": s3["chunked"]["launches"]["correlative_window"],
         "local_slam_3d_per_scan": s3["per_scan"]["launches"]["correlative_window"],
         "backend_3d_map_builder": b3["map_builder"]["launches"]["correlative_window"],
+        "persist_localization": pe["localization"]["launches"]["correlative_window"],
+        "persist_imu_based_3d": pe["imu_based_3d"]["launches"]["correlative_window"],
     }
     main_case = kernels["main"]
     emit({"kernels": [{
@@ -1986,6 +2436,10 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
+        # Every case, the localization path's among them.
+        "cases": {name: {"ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+                         "bound_ms": c["bound_ms"], "max_abs_err": c["max_abs_err"]}
+                  for name, c in kernels.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -123,3 +123,54 @@ def test_batched_lm_on_card_matches_cpu():
     }
     np.testing.assert_allclose(out["cuda"][:, :3], out["cpu"][:, :3], atol=1e-4)
     assert np.abs(out["cpu"][:, :3] - initial).max() > 1e-3
+
+
+@pytest.mark.cuda
+def test_state_loaded_on_card_matches_cpu():
+    """A 2D state (built on the CPU) loaded on the card: the grids live on
+    the card, and poses, grids, constraints and the re-serialized records
+    equal those of the same state loaded on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import io
+
+    from cartographer_tpu_torch.common import config as c
+    from cartographer_tpu_torch.io.proto_stream import ProtoStreamReader
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+    from cartographer_tpu_torch.testing.synthetic import generate_fake_range_measurements
+
+    def options():
+        return c.MapBuilderOptions(use_trajectory_builder_2d=True)
+
+    mb = MapBuilder(options(), device="cpu")
+    tid = mb.add_trajectory_builder({"range"}, c.TrajectoryBuilderOptions(
+        trajectory_builder_2d=c.TrajectoryBuilder2DOptions(
+            use_imu_data=False, max_range=10.0,
+            motion_filter=c.MotionFilterOptions(max_distance_meters=0.04),
+            submaps=c.SubmapsOptions2D(num_range_data=8))))
+    for m in generate_fake_range_measurements(
+            translation=np.array([1.0, 0.5, 0.0]), duration=3.0, time_step=0.05):
+        mb.get_trajectory_builder(tid).add_sensor_data("range", m)
+    mb.finish_trajectory(tid)
+    mb.pose_graph.run_final_optimization()
+    state = mb.serialize_state()
+    card, cpu = MapBuilder(options(), device="cuda"), MapBuilder(options(), device="cpu")
+    assert card.load_state(state) == cpu.load_state(state) == {0: 0}
+    for node_id, node in cpu.pose_graph.get_trajectory_nodes().items(NodeId):
+        np.testing.assert_array_equal(
+            card.pose_graph.get_trajectory_nodes().at(node_id).global_pose, node.global_pose)
+    submaps = cpu.pose_graph.get_all_submap_data()
+    assert submaps.size() >= 2
+    for submap_id, data in submaps.items(SubmapId):
+        grid = card.pose_graph.get_all_submap_data().at(submap_id).submap.grid
+        assert grid.log_odds.device.type == "cuda" and grid.known.device.type == "cuda"
+        assert torch.equal(grid.log_odds.cpu(), data.submap.grid.log_odds)
+        assert torch.equal(grid.known.cpu(), data.submap.grid.known)
+    assert [(x.submap_id, x.node_id, x.tag) for x in card.pose_graph.constraints] == [
+        (x.submap_id, x.node_id, x.tag) for x in cpu.pose_graph.constraints]
+
+    def records(blob):
+        return list(ProtoStreamReader(io.BytesIO(blob)))
+
+    assert records(card.serialize_state()) == records(cpu.serialize_state())

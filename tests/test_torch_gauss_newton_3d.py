@@ -315,13 +315,18 @@ def test_host_matchers_match_jax():
 
 
 def test_rotational_histogram_matches_jax():
-    """The copied numpy module gives the JAX package's numpy results
-    exactly: histograms, rotation, matching."""
+    """The copied module gives the JAX package's results exactly:
+    histograms (the native path of both packages, and both numpy walks),
+    rotation, matching. On this room scan the JAX package's native
+    histogram and its numpy walk differ (ROADMAP Queue C), so each path is
+    held against its JAX counterpart."""
     rng = np.random.default_rng(6)
     pts = room_scan(rng, 600).astype(np.float64)
     pts[:, 2] = np.round(pts[:, 2] / 0.2) * 0.2 + rng.normal(0, 0.01, len(pts))
+    np.testing.assert_array_equal(trh.compute_histogram_numpy(pts, 120),
+                                  jrh.compute_histogram_numpy(pts, 120))
     got = trh.compute_histogram(pts, 120)
-    want = jrh.compute_histogram_numpy(pts, 120)
+    want = jrh.compute_histogram(pts, 120)
     np.testing.assert_array_equal(got, want)
     assert got.sum() > 0
     for angle in (0.0, 0.3, -2.1):

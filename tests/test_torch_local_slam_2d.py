@@ -396,8 +396,12 @@ def test_per_scan_entry_points_need_cuda_unless_told_otherwise():
         TorchLocalBuilder(per_scan_options(tconfig), {"range"})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsubmap.ActiveSubmaps2D(submaps_options(tconfig))
+    # The IMU-based extrapolator is ported: MapBuilder builds the per-scan
+    # builder with it on the MapBuilder's device.
     imu_based = tconfig.TrajectoryBuilderOptions()
     imu_based.trajectory_builder_2d.pose_extrapolator.use_imu_based = True
-    with pytest.raises(NotImplementedError, match="IMU-based"):
-        MapBuilder(map_builder_options(tconfig), device="cpu").add_trajectory_builder(
-            {"range"}, imu_based)
+    mb = MapBuilder(map_builder_options(tconfig), device="cpu")
+    tid = mb.add_trajectory_builder({"range"}, imu_based)
+    local = mb.get_trajectory_builder(tid)._wrapped._local_trajectory_builder
+    assert isinstance(local, TorchLocalBuilder) and local._device.type == "cpu"
+    mb.shutdown()

@@ -428,17 +428,20 @@ def test_unported_and_unsupported_configurations_raise():
     assert not supports(options)
     with pytest.raises(ValueError, match="LocalTrajectoryBuilder3D"):
         ChunkedLocalTrajectoryBuilder3D(options, {"range"}, device="cpu")
+    # The IMU-based extrapolator is ported: the per-scan builder takes it,
+    # and MapBuilder's 3D route builds that builder with it
+    # (tests/test_torch_imu_based_extrapolator.py drives both).
     options = builder_options(tconfig)
     options.pose_extrapolator.use_imu_based = True
-    with pytest.raises(NotImplementedError, match="IMU-based"):
-        TorchLocalBuilder(options, {"range"}, device="cpu")
-    # MapBuilder's 3D route runs (tests/test_torch_pose_graph_3d.py); the
-    # IMU-based extrapolator still raises there.
+    assert not supports(options)
+    TorchLocalBuilder(options, {"range"}, device="cpu")
     mb = MapBuilder(tconfig.MapBuilderOptions(use_trajectory_builder_2d=False,
                                               use_trajectory_builder_3d=True),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="IMU-based"):
-        mb.add_trajectory_builder(
-            {"range", "imu"},
-            tconfig.TrajectoryBuilderOptions(trajectory_builder_3d=options),
-        )
+    tid = mb.add_trajectory_builder(
+        {"range", "imu"},
+        tconfig.TrajectoryBuilderOptions(trajectory_builder_3d=options),
+    )
+    local = mb.get_trajectory_builder(tid)._wrapped._local_trajectory_builder
+    assert isinstance(local, TorchLocalBuilder)
+    mb.shutdown()

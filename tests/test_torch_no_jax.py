@@ -45,9 +45,30 @@ local_slam += ["ops.spa_solver_3d", "mapping.optimization_problem_3d",
                "ops.scan_matching.fast_correlative_3d", "native.bnb3",
                "mapping.constraint_builder_3d", "mapping.pose_graph_3d",
                "common.task"]
+# The saved-maps slice's modules.
+local_slam += ["native", "mapping.imu_based_pose_extrapolator",
+               "sensor.compression", "transform.interpolation", "io.proto_stream",
+               "io.proto.state_pb2", "io.serialization", "io.pbstream_compat",
+               "io.submap_painter", "io.points_processor", "mapping.detect_floors"]
 missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print(len(names))
+"""
+
+
+_IMPORT_WITHOUT_PROTOBUF = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["google.protobuf"] = None
+import cartographer_tpu_torch as pkg
+allowed = {"cartographer_tpu_torch.io.pbstream_compat",
+           "cartographer_tpu_torch.io.proto.state_pb2"}
+count = 0
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if info.name not in allowed:
+        importlib.import_module(info.name)
+        count += 1
+print(count)
 """
 
 
@@ -63,6 +84,15 @@ def test_imports_without_jax_or_the_jax_package():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20  # every module was imported
+
+
+def test_only_the_protobuf_modules_import_protobuf():
+    """io.pbstream_compat and io.proto.state_pb2 alone import
+    google.protobuf; MapBuilder, the frontends and the npz serialization
+    import without it."""
+    proc = _run(_IMPORT_WITHOUT_PROTOBUF)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
 
 
 def test_default_device_is_cuda_and_raises_without_it():
