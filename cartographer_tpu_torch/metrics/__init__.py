@@ -1,15 +1,17 @@
-"""Metrics with null-object defaults (the instruments the ported slices
-touch, copied from cartographer_tpu/metrics/__init__.py).
+"""Metrics with null-object defaults.
 
-Reference: cartographer/metrics/{counter,gauge,histogram,family_factory}.h —
-instrumentation is free unless a real family factory is registered.
+Port of cartographer_tpu/metrics/__init__.py. Reference:
+cartographer/metrics/{counter,gauge,histogram,family_factory}.h and
+metrics/register.cc:31-41 — instrumentation is free unless a real family
+factory is registered; metrics/prometheus.py renders a real factory's
+registry for a scrape.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 
 class Counter:
@@ -22,6 +24,12 @@ class Counter:
 
 class Gauge:
     def set(self, value: float) -> None:
+        pass
+
+    def increment(self, by: float = 1.0) -> None:
+        pass
+
+    def decrement(self, by: float = 1.0) -> None:
         pass
 
     def value(self) -> float:
@@ -55,6 +63,14 @@ class _RealGauge(Gauge):
         with self._lock:
             self._value = value
 
+    def increment(self, by: float = 1.0) -> None:
+        with self._lock:
+            self._value += by
+
+    def decrement(self, by: float = 1.0) -> None:
+        with self._lock:
+            self._value -= by
+
     def value(self) -> float:
         return self._value
 
@@ -85,26 +101,41 @@ class FamilyFactory:
     def __init__(self, real: bool = False):
         self._real = real
         self._registry: Dict[str, object] = {}
+        self._meta: Dict[str, tuple] = {}
 
-    def counter(self, name: str) -> Counter:
-        return self._get(name, _RealCounter if self._real else Counter)
-
-    def gauge(self, name: str) -> Gauge:
-        return self._get(name, _RealGauge if self._real else Gauge)
-
-    def histogram(self, name: str, boundaries: Sequence[float]) -> HistogramMetric:
+    def counter(self, name: str, description: str = "") -> Counter:
         return self._get(
-            name,
-            (lambda: _RealHistogram(boundaries)) if self._real else HistogramMetric,
+            name, _RealCounter if self._real else Counter, "counter", description
         )
 
-    def _get(self, name, ctor):
+    def gauge(self, name: str, description: str = "") -> Gauge:
+        return self._get(
+            name, _RealGauge if self._real else Gauge, "gauge", description
+        )
+
+    def histogram(
+        self, name: str, description: str = "", boundaries: Optional[Sequence[float]] = None
+    ) -> HistogramMetric:
+        return self._get(
+            name,
+            (lambda: _RealHistogram(boundaries or score_histogram_boundaries(0, 1)))
+            if self._real
+            else HistogramMetric,
+            "histogram", description,
+        )
+
+    def _get(self, name, ctor, kind: str = "", description: str = ""):
         if name not in self._registry:
             self._registry[name] = ctor()
+            self._meta[name] = (kind, description)
         return self._registry[name]
 
     def registry(self) -> Dict[str, object]:
         return dict(self._registry)
+
+    def meta(self, name: str):
+        """(kind, description) of a registered metric."""
+        return self._meta.get(name, ("", ""))
 
 
 _factory = FamilyFactory(real=False)
@@ -129,6 +160,7 @@ def _register_all() -> None:
     global pose_graph_constraints_inter, pose_graph_constraints_intra
     global constraint_scores, constraints_found, constraints_searched
     global optimization_runs, beam_overflow_retries
+    global pose_graph_work_queue_size, pose_graph_work_queue_delay
     local_slam_latency = _factory.gauge("mapping_2d_local_trajectory_builder_latency")
     local_slam_real_time_ratio = _factory.gauge(
         "mapping_2d_local_trajectory_builder_real_time_ratio"
@@ -144,6 +176,8 @@ def _register_all() -> None:
     # Range-data endpoints dropped because they fell outside a fixed grid
     # extent (the reference grows its grids; here the loss is observable).
     grid_oob_points = _factory.counter("mapping_grid_out_of_extent_points")
+    pose_graph_work_queue_size = _factory.gauge("mapping_pose_graph_work_queue_size")
+    pose_graph_work_queue_delay = _factory.gauge("mapping_pose_graph_work_queue_delay")
     pose_graph_constraints_inter = _factory.gauge("mapping_constraints_inter_submap")
     pose_graph_constraints_intra = _factory.gauge("mapping_constraints_intra_submap")
     constraint_scores = _factory.histogram(

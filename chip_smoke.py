@@ -17,15 +17,14 @@ exits non-zero:
    kernel's time on the same launch shape (the launch floor), and the
    bound from the whole grid and from the grid sectors the inputs touch.
 4. slice: the chunked 2D local-SLAM frontend
-   (ChunkedLocalTrajectoryBuilder2D on cuda) over 300 scans of the
-   synthetic loop world, with online correlative matching on: kernel
-   launch counts from that run only, the error against ground truth,
-   every scan of the first two chunks rerun on the CPU from the GPU's
-   state before it (identical flags, poses within 1e-3), and one chunk
-   under torch.profiler for the device's busy share. Then, outside every
-   timed span, the frontend runs again up to the first window-sum call
-   of the third chunk, whose inputs become the kernel phase's "real"
-   case.
+   (ChunkedLocalTrajectoryBuilder2D on cuda) over the first 200 of the
+   synthetic loop world's 300 scans, with online correlative matching
+   on: kernel launch counts from that run only, the error against ground
+   truth, every scan of the first two chunks rerun on the CPU from the
+   GPU's state before it (identical flags, poses within 1e-3), and one
+   chunk under torch.profiler for the device's busy share. The inputs of
+   the run's first window-sum call of the third chunk (cloned once by the
+   recording wrapper) become the kernel phase's "real" case.
 5. backend: MapBuilder on cuda over half a lap of bench.py's scaled world
    (500 scans of 1024 beams) with bench.py's backend settings and the
    asynchronous pose graph: the frontend, loop-closure searches through
@@ -37,12 +36,12 @@ exits non-zero:
    CPU.
 6. sensors: the slice's world with IMU at 100 Hz and odometry at 50 Hz
    (made from the figure-eight's ground truth) through four paths on
-   cuda: the chunked frontend (200 scans; its first two chunks rerun scan
+   cuda: the chunked frontend (128 scans; its first two chunks rerun scan
    by scan on the CPU), the per-scan LocalTrajectoryBuilder2D on a
-   probability grid (150 scans) and on a TSDF (100 scans), each with its
+   probability grid (100 scans) and on a TSDF (60 scans), each with its
    first 8 scans rerun by a CPU copy of the builder, and MapBuilder with
    the default 2D options (per-scan, IMU) plus odometry and the
-   pure-localization trimmer (200 scans, synchronous pose graph): scans/s,
+   pure-localization trimmer (150 scans, synchronous pose graph): scans/s,
    real-time ratio, error against ground truth, launches per path. The
    inputs of each per-scan path's first window-sum call (the angle rows
    padded to a power of two; the TSDF path's grid is the TSDF's
@@ -52,7 +51,7 @@ exits non-zero:
    semicircle wall, 1,575 points a scan, 10 Hz, 5 m of travel; IMU at
    50 Hz) through both 3D local builders on cuda, with paged grids of 256
    cells at 0.10 m and 128 at 0.45 m and 40 range data per submap: the
-   chunked frontend (chunk 16, the first 200 scans, the bench's filters and motion
+   chunked frontend (chunk 16, the first 120 scans, the bench's filters and motion
    filter; its first chunk rerun scan by scan on the CPU from the GPU's
    state) and the per-scan LocalTrajectoryBuilder3D with the default
    options (100 scans; its first 8 scans rerun by a CPU copy): scans/s,
@@ -96,8 +95,31 @@ exits non-zero:
    (csrc/native.cc) are timed against numpy on the phases' clouds: the
    voxel filter on a 1024-beam 2D scan and a 1,575-point 3D scan (masks
    equal), the rotational histogram on a 3D node's cloud.
-10. seconds: each phase's wall seconds.
-11. kernels: one line with every kernel's numbers (the main case) and the
+10. cloud: the SLAM server on cuda over real gRPC on localhost (the
+   transport and the grpc and protobuf versions are printed). A
+   MapBuilderServer (backend_options' asynchronous pose graph, Prometheus
+   on a free port) takes a {range, imu, odometry} trajectory with the
+   sensors phase's per-scan options from a MapBuilderStub, which
+   subscribes to local-SLAM results and optimization events and streams
+   the first 200 scans of the sensors phase's world (with its IMU and
+   odometry) through the per-sensor streaming RPCs, unpaced, then calls
+   FinishTrajectory and RunFinalOptimization. Checks: window-sum launches,
+   node poses over the wire equal to the server's, node error from node 8
+   (limit 0.3 m), a local-SLAM result for every node, an optimization
+   event, WriteState's records equal to the server's own state,
+   GetSubmapData of submap 0 equal to compute_cropped of it, and the
+   optimization counter on /metrics. Printed: scans/s and the real-time
+   ratio from the first write to the last local-SLAM result, and the
+   round trips of FinishTrajectory, RunFinalOptimization and
+   GetTrajectoryNodePoses. The inputs of the path's first window-sum call
+   become the kernel phase's "cloud" case. Then a robot server uploads to
+   a second server on the card, which is shut down after 30 scans and
+   restarted on its port after 20 more (30 more follow); and
+   tools/map_builder_server_main runs as a subprocess on written Lua
+   files, builds nodes from 40 scans sent over the wire and exits 0 on
+   SIGINT.
+11. seconds: each phase's wall seconds.
+12. kernels: one line with every kernel's numbers (the main case) and the
    launches of each path above.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -377,17 +399,6 @@ def feed(builder, events, flush=True):
     return results
 
 
-def run_builder(events, device, chunk):
-    from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
-        ChunkedLocalTrajectoryBuilder2D,
-    )
-
-    builder = ChunkedLocalTrajectoryBuilder2D(
-        loop_world_options(), {"range"}, chunk_size=chunk, device=device
-    )
-    return feed(builder, events)
-
-
 FLAGS = ("matched", "inserted", "created", "popped", "finished", "num_filtered")
 
 
@@ -536,17 +547,14 @@ def window_sums_inputs(index):
         raise AssertionError(f"only {calls[0]} window_sums calls")
 
 
-def record_real_case(measurements, chunk):
-    """The inputs of the first window_sums call of the third chunk, from an
-    untimed run of the frontend up to that call."""
-    with window_sums_inputs(2 * chunk) as kept:
-        run_builder(range_events(measurements[: 2 * chunk + 1]), "cuda", chunk)
-    return kept[0]
-
-
 # The slice's world: a quarter lap of the loop world, 300 scans of 1024
 # beams at 20 Hz.
 SLICE_WORLD = dict(laps=0.25, time_step=0.05, num_beams=1024, max_range=12.0)
+
+# Depth cuts for the script's time limit, in scans of that world: the
+# slice run, and the sensors phase's four paths.
+SLICE_SCANS = 200
+SENSORS_SCANS = dict(chunked=128, per_scan=100, per_scan_tsdf=60, map_builder=150)
 
 
 def max_position_error(results, true_poses, time_step, limit=0.3):
@@ -580,6 +588,7 @@ def slice_phase(device, smi):
 
     time_step, chunk = SLICE_WORLD["time_step"], 32
     measurements, true_poses = generate_loop_world(**SLICE_WORLD)
+    measurements = measurements[:SLICE_SCANS]
     num_scans = len(measurements)
 
     from cartographer_tpu_torch.mapping.chunked_frontend_2d import (
@@ -589,21 +598,22 @@ def slice_phase(device, smi):
     builder = ChunkedLocalTrajectoryBuilder2D(
         loop_world_options(), {"range"}, chunk_size=chunk, device=device
     )
-    cw.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     results = []
     t_first = None  # end of the first chunk (CUDA and allocator warm-up)
-    for m in measurements:
-        results.extend(builder.add_range_data("range", m))
-        if t_first is None and results:
-            torch.cuda.synchronize()
-            t_first = time.perf_counter()
-    results.extend(builder.flush())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    steady_wall = time.perf_counter() - t_first
-    launches = cw.LAUNCHES
+    with window_sums_inputs(2 * chunk) as kept:
+        cw.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in measurements:
+            results.extend(builder.add_range_data("range", m))
+            if t_first is None and results:
+                torch.cuda.synchronize()
+                t_first = time.perf_counter()
+        results.extend(builder.flush())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steady_wall = time.perf_counter() - t_first
+        launches = cw.LAUNCHES
 
     if not results:
         raise AssertionError("no scan was matched")
@@ -619,7 +629,7 @@ def slice_phase(device, smi):
     # GPU's state before it and the same packed input.
     step = per_scan_parity(range_events(measurements[: 2 * chunk]))
     profile = profile_phase(measurements[: 2 * chunk], chunk)
-    real_args = record_real_case(measurements, chunk)
+    real_args = kept[0]
 
     r = {
         "phase": "slice",
@@ -654,6 +664,28 @@ BACKEND_WORLD = dict(
 # Nodes of the frontend's startup transient (bench.py's
 # aligned_ate_max_excl_startup_m window).
 STARTUP_NODES = 8
+
+
+def node_errors(pg, true_poses, time_step, first):
+    """Node position errors against ground truth, estimate and truth each
+    re-anchored at node `first`; returns (errors, estimated xy, true xy)
+    from that node on. Raises for too few nodes or a non-finite pose."""
+    from cartographer_tpu_torch.mapping.id import NodeId
+    from cartographer_tpu_torch.testing.synthetic import FAKE_START_TIME
+    from cartographer_tpu_torch.transform import rigid3
+
+    nodes = [n for _, n in pg.get_trajectory_nodes().items(NodeId)]
+    if len(nodes) <= 2 * STARTUP_NODES:
+        raise AssertionError(f"only {len(nodes)} nodes")
+    est = [np.asarray(n.global_pose, np.float64) for n in nodes]
+    true = [true_poses[int(round((n.constant_data.time - FAKE_START_TIME) / time_step))]
+            for n in nodes]
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("non-finite node pose")
+    est0_inv, true0_inv = rigid3.inverse(est[first]), rigid3.inverse(true[first])
+    est_xy = np.stack([rigid3.compose(est0_inv, p)[:2] for p in est[first:]])
+    true_xy = np.stack([rigid3.compose(true0_inv, p)[:2] for p in true[first:]])
+    return np.linalg.norm(est_xy - true_xy, axis=1), est_xy, true_xy
 
 
 def backend_options():
@@ -855,13 +887,9 @@ def backend_phase(device, smi):
     from cartographer_tpu_torch.evaluation.trajectory_metrics import aligned_ate
     from cartographer_tpu_torch.kernels import correlative_window as cw
     from cartographer_tpu_torch.mapping import optimization_problem_2d as op2d
-    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+    from cartographer_tpu_torch.mapping.id import SubmapId
     from cartographer_tpu_torch.mapping.map_builder import MapBuilder
-    from cartographer_tpu_torch.testing.synthetic import (
-        FAKE_START_TIME,
-        generate_loop_world,
-    )
-    from cartographer_tpu_torch.transform import rigid3
+    from cartographer_tpu_torch.testing.synthetic import generate_loop_world
 
     measurements, true_poses = generate_loop_world(**BACKEND_WORLD)
     time_step = BACKEND_WORLD["time_step"]
@@ -935,23 +963,8 @@ def backend_phase(device, smi):
     # estimate, so the first scans unwarp wrongly; bench.py's
     # aligned_ate_max_excl_startup_m), so the asserted error is taken
     # relative to the first node after them.
-    nodes = list(pg.get_trajectory_nodes().items(NodeId))
-    if len(nodes) <= 2 * STARTUP_NODES:
-        raise AssertionError(f"only {len(nodes)} nodes")
-    index = [int(round((n.constant_data.time - FAKE_START_TIME) / time_step)) for _, n in nodes]
-    est_pose = [np.asarray(n.global_pose, np.float64) for _, n in nodes]
-    true_pose = [true_poses[k] for k in index]
-    if not np.all(np.isfinite(est_pose)):
-        raise AssertionError("non-finite node pose")
-
-    def errors_from(first):
-        est0_inv, true0_inv = rigid3.inverse(est_pose[first]), rigid3.inverse(true_pose[first])
-        est = np.stack([rigid3.compose(est0_inv, p)[:2] for p in est_pose[first:]])
-        true = np.stack([rigid3.compose(true0_inv, p)[:2] for p in true_pose[first:]])
-        return np.linalg.norm(est - true, axis=1), est, true
-
-    errs, _, _ = errors_from(STARTUP_NODES)
-    errs_all, est_xy, true_xy = errors_from(0)
+    errs, _, _ = node_errors(pg, true_poses, time_step, STARTUP_NODES)
+    errs_all, est_xy, true_xy = node_errors(pg, true_poses, time_step, 0)
     ate = aligned_ate(est_xy, true_xy)
     inter = [c for c in pg.constraints if c.tag == "INTER_SUBMAP"]
     if not inter:
@@ -990,7 +1003,7 @@ def backend_phase(device, smi):
     r = {
         "phase": "backend",
         "scans": len(measurements),
-        "nodes": len(nodes),
+        "nodes": len(errs_all),
         "submaps": len(list(pg.get_all_submap_data().items(SubmapId))),
         "searches": searched,
         "beam_overflow_retries": retries,
@@ -1272,11 +1285,11 @@ def sensors_phase(device, smi):
     events = sensor_events(measurements)
     t_phase = time.perf_counter()
 
-    # 200 of the world's 300 scans: a depth cut for the script's time limit.
+    n = SENSORS_SCANS
     results, chunked = timed_run(
         lambda: ChunkedLocalTrajectoryBuilder2D(
             sensor_options(), {"range"}, chunk_size=chunk, device=device),
-        first_scans(events, 200), 200, time_step, true_poses, device,
+        first_scans(events, n["chunked"]), n["chunked"], time_step, true_poses, device,
     )
     require_launches(chunked["launches"]["correlative_window"], len(results),
                      "matched scans")
@@ -1284,10 +1297,10 @@ def sensors_phase(device, smi):
     chunked.update(per_scan_parity(first_scans(events, 2 * chunk), sensor_options()))
 
     per_scan, per_scan_args = per_scan_part(
-        events, true_poses, sensor_options(), 150, time_step, device)
+        events, true_poses, sensor_options(), n["per_scan"], time_step, device)
     tsdf, tsdf_args = per_scan_part(
-        events, true_poses, sensor_options("TSDF"), 100, time_step, device)
-    map_builder = map_builder_part(events, 200, time_step, device)
+        events, true_poses, sensor_options("TSDF"), n["per_scan_tsdf"], time_step, device)
+    map_builder = map_builder_part(events, n["map_builder"], time_step, device)
     r = {
         "phase": "sensors",
         "imu_hz": 100, "odometry_hz": 50,
@@ -1469,7 +1482,7 @@ def run_3d_path(make_builder, events, num_scans, true_position, device):
 def local_slam_3d_phase(device, smi):
     """bench.py:_bench_3d's world and options (testing/bench_3d.py)
     through both 3D local builders on `device`: the chunked frontend
-    (chunk 16, 200 scans; its first chunk rerun scan by scan on the CPU)
+    (chunk 16, 120 scans; its first chunk rerun scan by scan on the CPU)
     and the per-scan builder with the default options and the bench's
     grids (100 scans; its first 8 scans rerun by a CPU copy); each with a
     profile over warm scans."""
@@ -1490,9 +1503,9 @@ def local_slam_3d_phase(device, smi):
         return ChunkedLocalTrajectoryBuilder3D(
             bench_3d_options(), {"range"}, chunk_size=chunk, device=device)
 
-    # 200 of the world's 300 scans: a depth cut for the script's time limit.
+    # 120 of the world's 300 scans: a depth cut for the script's time limit.
     builder, _, chunked = run_3d_path(
-        chunked_builder, first_scans(events, 200), 200, true_position, device)
+        chunked_builder, first_scans(events, 120), 120, true_position, device)
     chunked["chunk"] = chunk
     chunked["pool_blocks_used"] = builder._state.pg_nblocks.tolist()
     t0 = time.perf_counter()
@@ -2362,6 +2375,311 @@ def persist_phase(device, smi, saved_2d, saved_3d):
     return r, localization_args
 
 
+# -- cloud: the SLAM server over gRPC, the uplink, the server main
+
+# Scans of the sensors phase's world streamed to the server; the uplink's
+# three legs (upstream up, down, up again); scans sent to the server main.
+CLOUD_SCANS = 200
+UPLINK_LEGS = (30, 20, 30)
+SERVER_MAIN_SCANS = 40
+
+
+def grpc_transport():
+    """The transport the cloud phase drives: gRPC where it imports, and
+    the version it reports."""
+    import grpc
+    import google.protobuf
+
+    return {"transport": "grpc", "grpc": grpc.__version__,
+            "protobuf": google.protobuf.__version__}
+
+
+def stream_events(stub_builder, events) -> None:
+    """Write (kind, time, payload) events through the stub's per-sensor
+    streams, unpaced."""
+    for kind, _, payload in events:
+        stub_builder.add_sensor_data(kind, payload)
+
+
+def cloud_server_part(events, true_poses, device):
+    """A MapBuilderServer on `device` (backend_options' asynchronous pose
+    graph, Prometheus on a free port) driven through a MapBuilderStub on
+    localhost: a {range, imu, odometry} trajectory with the sensors
+    phase's per-scan options, both subscriptions, the first CLOUD_SCANS
+    scans streamed unpaced, then FinishTrajectory and RunFinalOptimization
+    over the wire. Checks the wire against the server's own state. Also
+    returns the inputs of the path's first window-sum call."""
+    import urllib.request
+
+    from cartographer_tpu_torch.cloud.map_builder_server import MapBuilderServer
+    from cartographer_tpu_torch.cloud.map_builder_stub import MapBuilderStub
+    from cartographer_tpu_torch.common.config import TrajectoryBuilderOptions
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.mapping.grid_2d import compute_cropped
+    from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
+
+    time_step = SLICE_WORLD["time_step"]
+    mb_options, _ = backend_options()
+    server = MapBuilderServer(mb_options, monitoring_port=0, device=device)
+    server.start()
+    stub = MapBuilderStub(f"localhost:{server.port}")
+    local_results, optimizations, last_result = [], [], [0.0]
+
+    def on_local_result(tid, t, pose):
+        local_results.append((tid, t, pose))
+        last_result[0] = time.perf_counter()
+
+    try:
+        subscriptions = [
+            stub.receive_local_slam_results(on_local_result),
+            stub.receive_global_slam_optimizations(
+                lambda submaps, nodes: optimizations.append((submaps, nodes))),
+        ]
+        options = TrajectoryBuilderOptions(trajectory_builder_2d=sensor_options())
+        tid = stub.add_trajectory_builder({"range", "imu", "odometry"}, options)
+        head = first_scans(events, CLOUD_SCANS)
+        with window_sums_inputs(0) as kept:
+            sync(device)
+            cw.LAUNCHES = 0
+            t_first_write = time.perf_counter()
+            stream_events(stub.get_trajectory_builder(tid), head)
+            t0 = time.perf_counter()
+            stub.finish_trajectory(tid)
+            finish_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stub.pose_graph.run_final_optimization()
+            final_optimization_s = time.perf_counter() - t0
+            sync(device)
+            launches = cw.LAUNCHES
+        require_launches(launches, 1, "scans through the server")
+        t0 = time.perf_counter()
+        wire_poses = stub.pose_graph.get_trajectory_node_poses()
+        node_poses_s = time.perf_counter() - t0
+
+        pg = server.map_builder.pose_graph
+        nodes = pg.get_trajectory_nodes()
+        if set(wire_poses) != set(nodes.ids(NodeId)) or not all(
+                np.array_equal(pose, nodes.at(nid).global_pose) for nid, pose in wire_poses.items()):
+            raise AssertionError("node poses over the wire differ from the server's")
+        errs, _, _ = node_errors(pg, true_poses, time_step, STARTUP_NODES)
+        if errs.max() > 0.3:
+            raise AssertionError(f"max node error {errs.max():.3f} m > 0.3 m from node {STARTUP_NODES}")
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and not optimizations:
+            time.sleep(0.05)
+        if len(local_results) < nodes.size():
+            raise AssertionError(f"{len(local_results)} local SLAM results for {nodes.size()} nodes")
+        if not optimizations:
+            raise AssertionError("no global optimization event")
+
+        state = stub.serialize_state()
+        if state_records(state) != state_records(server.map_builder.serialize_state()):
+            raise AssertionError("WriteState's records differ from the server's own state")
+        texture = stub.get_submap_data(SubmapId(tid, 0))
+        cropped = compute_cropped(pg.get_all_submap_data().at(SubmapId(tid, 0)).submap.grid)
+        if not (np.array_equal(texture["intensity"],
+                               np.where(cropped.known, cropped.probability, 0.5).astype(np.float32))
+                and np.array_equal(texture["alpha"], cropped.known.astype(np.float32))
+                and np.array_equal(texture["origin"], np.asarray(cropped.origin, np.float64))):
+            raise AssertionError("GetSubmapData differs from compute_cropped of submap 0")
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server._exporter.port}/metrics", timeout=10).read().decode()
+        found = re.search(r"^mapping_pose_graph_optimizations (\S+)$", body, re.M)
+        if found is None or float(found.group(1)) < 1:
+            raise AssertionError("/metrics shows no pose-graph optimization")
+        for subscription in subscriptions:
+            subscription.cancel()
+        stream_s = last_result[0] - t_first_write
+        return {
+            "scans": CLOUD_SCANS,
+            "events": len(head),
+            "nodes": nodes.size(),
+            "submaps": pg.get_all_submap_data().size(),
+            "constraints": len(pg.constraints),
+            "local_slam_results": len(local_results),
+            "global_optimization_events": len(optimizations),
+            "scans_per_s": CLOUD_SCANS / stream_s,
+            "real_time_ratio": CLOUD_SCANS * time_step / stream_s,
+            "finish_trajectory_rtt_s": finish_s,
+            "run_final_optimization_rtt_s": final_optimization_s,
+            "get_trajectory_node_poses_rtt_s": node_poses_s,
+            "max_node_error_m": float(errs.max()),
+            "node_poses_equal_over_wire": True,
+            "write_state_records_equal": True,
+            "state_mb": len(state) / 1e6,
+            "submap_0_texture": list(texture["intensity"].shape),
+            "metrics_pose_graph_optimizations": float(found.group(1)),
+            "launches": {"correlative_window": launches},
+        }, kept[0]
+    finally:
+        stub.close()
+        server.shutdown()
+        server.map_builder.shutdown()
+
+
+def cloud_uplink_part(events, device):
+    """A robot server on `device` uploading to a second server on the same
+    card (batches of 10): UPLINK_LEGS scans streamed with the upstream up,
+    shut down, and restarted on its old port (tests/test_client_server.py's
+    fault injection at full width). The uploader drains; the robot builds
+    more than 10 nodes and the restarted upstream at least one."""
+    from cartographer_tpu_torch.cloud.map_builder_server import MapBuilderServer
+    from cartographer_tpu_torch.cloud.map_builder_stub import MapBuilderStub
+    from cartographer_tpu_torch.common.config import TrajectoryBuilderOptions
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+
+    mb_options, _ = backend_options()
+    upstream = MapBuilderServer(mb_options, device=device)
+    upstream.start()
+    port = upstream.port
+    robot = MapBuilderServer(mb_options, uplink_address=f"localhost:{port}",
+                             uplink_batch_size=10, device=device)
+    robot.start()
+    stub = MapBuilderStub(f"localhost:{robot.port}")
+    servers = [robot, upstream]
+    try:
+        tid = stub.add_trajectory_builder(
+            {"range", "imu", "odometry"},
+            TrajectoryBuilderOptions(trajectory_builder_2d=sensor_options()))
+        builder = stub.get_trajectory_builder(tid)
+        ends = np.cumsum(UPLINK_LEGS)
+        legs = [first_scans(events, int(n)) for n in ends]
+        legs = [legs[0]] + [b[len(a):] for a, b in zip(legs, legs[1:])]
+        sync(device)
+        cw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stream_events(builder, legs[0])
+        builder.close_streams()  # every write acknowledged by the robot
+        robot.wait_until_idle()
+        drained_before = robot._uploader.wait_until_drained()
+        upstream_before = upstream.map_builder.pose_graph.get_trajectory_nodes().size()
+        upstream.shutdown()
+        stream_events(builder, legs[1])
+        builder.close_streams()
+        robot.wait_until_idle()
+        upstream = MapBuilderServer(mb_options, address=f"localhost:{port}", device=device)
+        upstream.start()
+        servers.append(upstream)
+        stream_events(builder, legs[2])
+        builder.close_streams()
+        robot.wait_until_idle()
+        drained = robot._uploader.wait_until_drained()
+        upstream.wait_until_idle()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = cw.LAUNCHES
+        robot_nodes = robot.map_builder.pose_graph.get_trajectory_nodes().size()
+        upstream_nodes = upstream.map_builder.pose_graph.get_trajectory_nodes().size()
+        if not (drained_before and drained):
+            raise AssertionError("the uploader did not drain")
+        if robot_nodes <= 10 or upstream_nodes < 1:
+            raise AssertionError(
+                f"robot {robot_nodes} nodes, restarted upstream {upstream_nodes}")
+        return {
+            "scans": int(ends[-1]), "legs": list(UPLINK_LEGS), "batch": 10,
+            "robot_nodes": robot_nodes,
+            "upstream_nodes_before_shutdown": upstream_before,
+            "upstream_nodes_after_restart": upstream_nodes,
+            "uploader_drained": True,
+            "wall_s": wall,
+            "launches": {"correlative_window": launches},
+        }
+    finally:
+        stub.close()
+        for server in servers:
+            server.shutdown()
+            server.map_builder.shutdown()
+
+
+def server_main_part(events, device):
+    """tools/map_builder_server_main as a subprocess on the card (its
+    default device; `--device cpu` only where `device` is the CPU), on a
+    Lua configuration set written into a temporary directory: it prints
+    its port, builds more than 3 nodes from SERVER_MAIN_SCANS scans sent
+    over the wire, and exits 0 on SIGINT within 30 s."""
+    import signal
+    import tempfile
+
+    from cartographer_tpu_torch.cloud.map_builder_stub import MapBuilderStub
+    from cartographer_tpu_torch.common.config import TrajectoryBuilderOptions
+    from cartographer_tpu_torch.testing.server_config import write_server_configuration
+
+    with tempfile.TemporaryDirectory() as directory:
+        basename = write_server_configuration(directory)
+        t0 = time.perf_counter()
+        device_flag = ["--device", "cpu"] if str(device) == "cpu" else []
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cartographer_tpu_torch.tools.map_builder_server_main",
+             "--configuration_directory", directory, "--configuration_basename", basename,
+             *device_flag],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        try:
+            line = proc.stdout.readline()
+            if "listening on port" not in line:
+                proc.kill()
+                raise AssertionError(f"server main did not start: {line!r} {proc.stderr.read()[-2000:]}")
+            port = int(line.strip().rsplit(" ", 1)[-1])
+            startup_s = time.perf_counter() - t0
+            stub = MapBuilderStub(f"localhost:{port}")
+            tid = stub.add_trajectory_builder(
+                {"range"}, TrajectoryBuilderOptions(trajectory_builder_2d=loop_world_options()))
+            builder = stub.get_trajectory_builder(tid)
+            stream_events(builder, [e for e in first_scans(events, SERVER_MAIN_SCANS)
+                                    if e[0] == "range"])
+            stub.finish_trajectory(tid)
+            nodes = len(stub.pose_graph.get_trajectory_node_poses())
+            stub.close()
+            if nodes <= 3:
+                raise AssertionError(f"server main built {nodes} nodes")
+            proc.send_signal(signal.SIGINT)
+            t0 = time.perf_counter()
+            rc = proc.wait(timeout=30)
+            exit_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0:
+            raise AssertionError(f"server main exited {rc}: {proc.stderr.read()[-2000:]}")
+    return {"scans": SERVER_MAIN_SCANS, "nodes": nodes, "startup_s": startup_s,
+            "exit_code": rc, "exit_s": exit_s}
+
+
+def cloud_phase(device, smi):
+    """The cloud SLAM server on `device`: the server path through the
+    stub, the uplink with a restarted upstream, and the server main as a
+    subprocess. Also returns the inputs of the server path's first
+    window-sum call."""
+    from cartographer_tpu_torch.testing.synthetic import generate_loop_world
+
+    transport = grpc_transport()
+    measurements, true_poses = generate_loop_world(**SLICE_WORLD)
+    events = sensor_events(measurements)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    server, server_args = cloud_server_part(events, true_poses, device)
+    server["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uplink = cloud_uplink_part(events, device)
+    uplink["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server_main = server_main_part(events, device)
+    server_main["part_s"] = time.perf_counter() - t0
+    r = {
+        "phase": "cloud",
+        **transport,
+        "server": server,
+        "uplink": uplink,
+        "server_main": server_main,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": smi,
+    }
+    emit(r)
+    return r, server_args
+
+
 def main() -> int:
     import torch
 
@@ -2406,6 +2724,8 @@ def main() -> int:
     b3, saved_3d = timed("backend_3d", backend_3d_phase, device, smi)
     pe, localization_args = timed("persist", persist_phase, device, smi, saved_2d, saved_3d)
     kernels["localization"] = kernel_case("localization", localization_args)
+    cl, cloud_args = timed("cloud", cloud_phase, device, smi)
+    kernels["cloud"] = kernel_case("cloud", cloud_args)
     emit({"phase": "seconds", **seconds, "card": smi})
 
     # Each path's launches, counted from 0 just before it was driven.
@@ -2421,6 +2741,8 @@ def main() -> int:
         "backend_3d_map_builder": b3["map_builder"]["launches"]["correlative_window"],
         "persist_localization": pe["localization"]["launches"]["correlative_window"],
         "persist_imu_based_3d": pe["imu_based_3d"]["launches"]["correlative_window"],
+        "cloud_server": cl["server"]["launches"]["correlative_window"],
+        "cloud_uplink": cl["uplink"]["launches"]["correlative_window"],
     }
     main_case = kernels["main"]
     emit({"kernels": [{
@@ -2436,7 +2758,7 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
-        # Every case, the localization path's among them.
+        # Every case, the localization and cloud paths' among them.
         "cases": {name: {"ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
                          "bound_ms": c["bound_ms"], "max_abs_err": c["max_abs_err"]}
                   for name, c in kernels.items()},

@@ -50,6 +50,14 @@ local_slam += ["native", "mapping.imu_based_pose_extrapolator",
                "sensor.compression", "transform.interpolation", "io.proto_stream",
                "io.proto.state_pb2", "io.serialization", "io.pbstream_compat",
                "io.submap_painter", "io.points_processor", "mapping.detect_floors"]
+# The cloud-and-tools slice's modules.
+local_slam += ["common.blocking_queue", "common.rate_timer", "common.math", "common.lua",
+               "common.lua_config", "metrics", "metrics.prometheus", "cloud.wire",
+               "cloud.map_builder_server", "cloud.map_builder_stub",
+               "cloud.local_trajectory_uploader", "evaluation.relations_metric",
+               "tools.map_builder_server_main", "tools.print_configuration",
+               "tools.pbstream_main", "tools.autogenerate_ground_truth_main",
+               "tools.compute_relations_metrics_main", "testing.server_config"]
 missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print(len(names))
@@ -68,6 +76,23 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if info.name not in allowed:
         importlib.import_module(info.name)
         count += 1
+print(count)
+"""
+
+
+_IMPORT_WITHOUT_GRPC = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["grpc"] = None
+import cartographer_tpu_torch as pkg
+count = 0
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if not info.name.startswith("cartographer_tpu_torch.cloud."):
+        importlib.import_module(info.name)
+        count += 1
+# The tool mains import the server only when they run it.
+from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+from cartographer_tpu_torch.cloud import wire
 print(count)
 """
 
@@ -91,6 +116,14 @@ def test_only_the_protobuf_modules_import_protobuf():
     google.protobuf; MapBuilder, the frontends and the npz serialization
     import without it."""
     proc = _run(_IMPORT_WITHOUT_PROTOBUF)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
+
+
+def test_only_the_cloud_modules_import_grpc():
+    """Only cloud/'s server, stub and uploader import grpc: MapBuilder, the
+    frontends, the wire codec and the tool mains import without it."""
+    proc = _run(_IMPORT_WITHOUT_GRPC)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
 
