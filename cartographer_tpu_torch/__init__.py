@@ -7,19 +7,15 @@ hand-written CUDA for Hopper (`csrc/`, built at first use by
 package: the pure-Python modules it needs are copied under the same
 relative paths.
 
-Ported so far: 2D SLAM from scans to an optimized map. Local SLAM runs
-per scan (`mapping/local_trajectory_builder_2d.LocalTrajectoryBuilder2D`,
-the default, on probability grids or TSDFs) or chunked
-(`mapping/chunked_frontend_2d.ChunkedLocalTrajectoryBuilder2D` over
-`ops/frontend_2d.run_chunk`), with IMU and odometry fusion and online
-correlative matching; behind it the pose graph with loop closure, SPA and
-the trimmers, under `mapping/map_builder.MapBuilder`. 3D local SLAM runs
-per scan (`mapping/local_trajectory_builder_3d.LocalTrajectoryBuilder3D`,
-dense or paged voxel grids, IMU, intensities, online correlative
-matching) or chunked (`mapping/chunked_frontend_3d
-.ChunkedLocalTrajectoryBuilder3D` over `ops/frontend_3d.run_chunk`); the
-3D backend and MapBuilder's 3D route are not ported yet. Entry points run
-on CUDA unless the caller passes `device="cpu"`.
+Every module of the JAX package has its counterpart: 2D and 3D local
+SLAM, per scan (`mapping/local_trajectory_builder_2d`, `_3d`) or chunked
+(`mapping/chunked_frontend_2d`, `_3d` over `ops/frontend_2d`, `_3d`),
+the pose graphs with loop closure, SPA and the trimmers under
+`mapping/map_builder.MapBuilder`, saved maps (`io/`), the cloud server
+(`cloud/`), the tool mains (`tools/`) and the multi-rank backend
+(`parallel/`: the loop-closure search batches and the SPA solves split
+over torch.distributed ranks). Entry points run on CUDA unless the caller
+passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

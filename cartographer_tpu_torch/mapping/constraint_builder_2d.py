@@ -42,7 +42,6 @@ from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.common.config import ConstraintBuilderOptions
 from cartographer_tpu_torch.common.fixed_ratio_sampler import FixedRatioSampler
 from cartographer_tpu_torch.common.histogram import Histogram
-from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.mapping.grid_2d import Grid2D
 from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
 from cartographer_tpu_torch.mapping.scan_matching_2d import CeresScanMatcher2D
@@ -56,6 +55,7 @@ from cartographer_tpu_torch.ops.scan_matching.fast_correlative_2d import (
 from cartographer_tpu_torch.ops.scan_matching.gauss_newton_2d import (
     match_log_odds_batch,
 )
+from cartographer_tpu_torch.parallel.partition import mesh_device
 from cartographer_tpu_torch.transform import rigid2
 
 INTRA_SUBMAP = "INTRA_SUBMAP"
@@ -89,14 +89,19 @@ class ConstraintBuilder2D:
     # Searches per pipeline stage of the native backend.
     _DRAIN_CHUNK = 256
 
-    def __init__(self, options: ConstraintBuilderOptions, device=None):
-        """`device=None` means CUDA; pass device="cpu" to run on the CPU."""
+    def __init__(self, options: ConstraintBuilderOptions, device=None, mesh=None):
+        """`device=None` means CUDA (the mesh's device when a mesh is
+        given); pass device="cpu" to run on the CPU. mesh: optional
+        parallel/partition.Mesh — the drained device search batch is split
+        over its ranks (whole BnB searches per rank), the analog of the
+        reference's ThreadPool fan-out (constraint_builder_2d.cc:102-136)."""
         if options.loop_closure_backend not in ("native", "auto", "device"):
             raise ValueError(
                 f"unknown loop_closure_backend {options.loop_closure_backend!r}"
             )
         self._options = options
-        self._device = resolve_device(device)
+        self._device = mesh_device(device, mesh)
+        self._mesh = mesh
         self._ceres_matcher = CeresScanMatcher2D(options.ceres_scan_matcher)
         self._samplers: Dict[SubmapId, FixedRatioSampler] = {}
         self._matchers: Dict[SubmapId, FastCorrelativeScanMatcher2D] = {}
@@ -383,7 +388,7 @@ class ConstraintBuilder2D:
                     min_score=min_score,
                 )
             )
-        packed, ctxs = batch_match_device(batch)
+        packed, ctxs = batch_match_device(batch, mesh=self._mesh)
         return [
             (search, FastCorrelativeScanMatcher2D.decode(row, ctx))
             for search, row, ctx in zip(pending, packed, ctxs)

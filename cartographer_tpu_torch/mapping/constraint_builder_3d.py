@@ -36,7 +36,6 @@ from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.common.config import ConstraintBuilderOptions
 from cartographer_tpu_torch.common.fixed_ratio_sampler import FixedRatioSampler
 from cartographer_tpu_torch.common.histogram import Histogram
-from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.mapping.constraint_builder_2d import (
     INTER_SUBMAP,
     Constraint,
@@ -54,6 +53,7 @@ from cartographer_tpu_torch.ops.scan_matching.fast_correlative_3d import (
     MatchResult3D,
     batch_match_device_3d,
 )
+from cartographer_tpu_torch.parallel.partition import mesh_device
 from cartographer_tpu_torch.transform import rigid3
 
 
@@ -70,14 +70,18 @@ class ConstraintBuilder3D:
     # Searches per pipeline stage of the native backend.
     _DRAIN_CHUNK = 256
 
-    def __init__(self, options: ConstraintBuilderOptions, device=None):
-        """`device=None` means CUDA; pass device="cpu" to run on the CPU."""
+    def __init__(self, options: ConstraintBuilderOptions, device=None, mesh=None):
+        """`device=None` means CUDA (the mesh's device when a mesh is
+        given); pass device="cpu" to run on the CPU. mesh: optional
+        parallel/partition.Mesh — drained device search batches are split
+        over its ranks (constraint_builder_2d.ConstraintBuilder2D)."""
         if options.loop_closure_backend not in ("native", "auto", "device"):
             raise ValueError(
                 f"unknown loop_closure_backend {options.loop_closure_backend!r}"
             )
         self._options = options
-        self._device = resolve_device(device)
+        self._device = mesh_device(device, mesh)
+        self._mesh = mesh
         self._samplers: Dict[SubmapId, FixedRatioSampler] = {}
         self._matchers: Dict[SubmapId, FastCorrelativeScanMatcher3D] = {}
         self._submaps: Dict[SubmapId, Submap3D] = {}
@@ -379,7 +383,7 @@ class ConstraintBuilder3D:
                 kept.append(search)
         if not preps:
             return [(s, None) for s in pending]
-        packed, ctxs = batch_match_device_3d(preps)
+        packed, ctxs = batch_match_device_3d(preps, mesh=self._mesh)
         decoded = {
             id(search): self._matcher(search.submap_id).decode(row, ctx)
             for search, row, ctx in zip(kept, packed, ctxs)

@@ -29,7 +29,6 @@ from cartographer_tpu_torch.common.config import (
 )
 from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.common.task import ThreadPool
-from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.mapping import chunked_frontend_2d, chunked_frontend_3d
 from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
     LocalTrajectoryBuilder2D,
@@ -41,6 +40,7 @@ from cartographer_tpu_torch.mapping.local_trajectory_builder_3d import (
 from cartographer_tpu_torch.mapping.pose_graph_2d import PoseGraph2D
 from cartographer_tpu_torch.mapping.pose_graph_3d import PoseGraph3D
 from cartographer_tpu_torch.mapping.trimmers import PureLocalizationTrimmer
+from cartographer_tpu_torch.parallel.partition import mesh_device
 from cartographer_tpu_torch.sensor.collator import Collator, TrajectoryCollator
 from cartographer_tpu_torch.sensor.data import (
     FixedFramePoseData,
@@ -188,21 +188,36 @@ def _slow_path_fallback(builder, reason: str):
 
 
 class MapBuilder:
-    def __init__(self, options: MapBuilderOptions, device=None):
-        """`device=None` means CUDA; pass device="cpu" to run the
-        frontends and the backend on the CPU."""
+    def __init__(self, options: MapBuilderOptions, device=None, mesh=None):
+        """`device=None` means CUDA (the mesh's device when a mesh is
+        given); pass device="cpu" to run the frontends and the backend on
+        the CPU.
+
+        mesh: optional parallel/partition.Mesh — the pose-graph backend's
+        loop-closure search batches and SPA solves run split over its
+        ranks (parallel/sharded.py). Every rank feeds the same sensor data.
+        With more than one rank the pose graph drains synchronously, even
+        when `async_pose_graph` is set: an asynchronous drain takes
+        whatever is pending when it starts, so the ranks would batch
+        different searches. A one-rank mesh keeps the asynchronous drains."""
         assert options.use_trajectory_builder_2d != options.use_trajectory_builder_3d, (
             "Exactly one of use_trajectory_builder_2d / 3d must be set."
         )
         self._options = options
-        self._device = resolve_device(device)
+        self._device = mesh_device(device, mesh)
         thread_pool = None
         if options.async_pose_graph:
-            thread_pool = ThreadPool(max(1, options.num_background_threads))
+            if mesh is not None and mesh.world_size > 1:
+                logging.info(
+                    "MapBuilder: a mesh of %d ranks drains the pose graph "
+                    "synchronously (async_pose_graph ignored)", mesh.world_size,
+                )
+            else:
+                thread_pool = ThreadPool(max(1, options.num_background_threads))
         self._thread_pool = thread_pool
         pose_graph_type = PoseGraph3D if options.use_trajectory_builder_3d else PoseGraph2D
         self._pose_graph = pose_graph_type(
-            options.pose_graph, thread_pool, device=self._device
+            options.pose_graph, thread_pool, device=self._device, mesh=mesh
         )
         self._collator = (
             TrajectoryCollator() if options.collate_by_trajectory else Collator()

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.common.config import OptimizationProblemOptions
 from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.mapping.constraint_builder_2d import (
@@ -26,8 +27,9 @@ from cartographer_tpu_torch.mapping.constraint_builder_2d import (
     Constraint,
 )
 from cartographer_tpu_torch.mapping.id import MapById, NodeId, SubmapId
-from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.ops.spa_solver import SpaExtras, SpaProblem, solve
+from cartographer_tpu_torch.parallel import sharded
+from cartographer_tpu_torch.parallel.partition import mesh_device
 from cartographer_tpu_torch.sensor.data import OdometryData
 from cartographer_tpu_torch.sensor.map_by_time import MapByTime
 from cartographer_tpu_torch.transform import rigid2, rigid3
@@ -47,10 +49,15 @@ class SubmapSpec2D:
 
 
 class OptimizationProblem2D:
-    def __init__(self, options: OptimizationProblemOptions, device=None):
-        """`device=None` means CUDA; pass device="cpu" to solve on the CPU."""
+    def __init__(self, options: OptimizationProblemOptions, device=None, mesh=None):
+        """`device=None` means CUDA (the mesh's device when a mesh is
+        given); pass device="cpu" to solve on the CPU. mesh: optional
+        parallel/partition.Mesh — the residual tables of the SPA solve are
+        split over its ranks (poses replicated, J^T J sums all-reduced);
+        the split needs no padding rows."""
         self._options = options
-        self._device = resolve_device(device)
+        self._device = mesh_device(device, mesh)
+        self._mesh = mesh
         self.node_data: MapById = MapById()
         self.submap_data: MapById = MapById()
         self._odometry_data = MapByTime()
@@ -263,6 +270,11 @@ class OptimizationProblem2D:
         extras, landmark_ids, ff_traj_ids = self._build_extras(
             landmark_nodes, node_ids, node_index, frozen_trajectories
         )
+        if self._mesh is not None:
+            metrics.sharded_spa_solves.increment()
+            problem = sharded.shard_spa_problem(self._mesh, problem)
+            if extras is not None:
+                extras = sharded.shard_spa_extras(self._mesh, extras)
         result = solve(
             problem,
             huber_scale=self._options.huber_scale,
@@ -271,6 +283,7 @@ class OptimizationProblem2D:
             use_nonmonotonic_steps=bool(
                 self._options.ceres_solver_options.use_nonmonotonic_steps
             ),
+            mesh=self._mesh,
         )
         new_sp = result[0].cpu().numpy().astype(np.float64)
         new_np = result[1].cpu().numpy().astype(np.float64)

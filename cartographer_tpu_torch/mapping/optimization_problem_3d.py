@@ -21,12 +21,14 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.common.config import OptimizationProblemOptions
 from cartographer_tpu_torch.common.time import Time
 from cartographer_tpu_torch.mapping.constraint_builder_2d import INTER_SUBMAP, Constraint
-from cartographer_tpu_torch.device import resolve_device
 from cartographer_tpu_torch.mapping.id import MapById, NodeId, SubmapId
 from cartographer_tpu_torch.ops import spa_solver_3d
+from cartographer_tpu_torch.parallel import sharded
+from cartographer_tpu_torch.parallel.partition import mesh_device
 from cartographer_tpu_torch.sensor.data import ImuData, OdometryData
 from cartographer_tpu_torch.sensor.map_by_time import MapByTime
 from cartographer_tpu_torch.transform import rigid3
@@ -92,10 +94,16 @@ def _fetch(t: torch.Tensor) -> np.ndarray:
 
 
 class OptimizationProblem3D:
-    def __init__(self, options: OptimizationProblemOptions, device=None):
-        """`device=None` means CUDA; pass device="cpu" to solve on the CPU."""
+    def __init__(self, options: OptimizationProblemOptions, device=None, mesh=None):
+        """`device=None` means CUDA (the mesh's device when a mesh is
+        given); pass device="cpu" to solve on the CPU. mesh: optional
+        parallel/partition.Mesh — every SE(3) residual table (constraints,
+        node-node, IMU rotation and acceleration rows, landmark and
+        fixed-frame observations) is split over its ranks, pose and
+        calibration tables replicated."""
         self._options = options
-        self._device = resolve_device(device)
+        self._device = mesh_device(device, mesh)
+        self._mesh = mesh
         self.node_data: MapById = MapById()
         self.submap_data: MapById = MapById()
         self._imu_data = MapByTime()
@@ -402,6 +410,11 @@ class OptimizationProblem3D:
         extras, landmark_ids, ff_traj_ids = self._build_extras(
             landmark_nodes, node_ids, node_index, frozen_trajectories
         )
+        if self._mesh is not None:
+            metrics.sharded_spa_solves.increment()
+            problem = sharded.shard_spa_problem_3d(self._mesh, problem)
+            if extras is not None:
+                extras = sharded.shard_spa_extras_3d(self._mesh, extras)
         results = spa_solver_3d.solve_3d(
             problem,
             huber_scale=opts.huber_scale,
@@ -410,6 +423,7 @@ class OptimizationProblem3D:
             use_nonmonotonic_steps=bool(
                 opts.ceres_solver_options.use_nonmonotonic_steps
             ),
+            mesh=self._mesh,
         )
         if extras is None:
             st, sq, nt, nq, grav, calib_q, _ = results

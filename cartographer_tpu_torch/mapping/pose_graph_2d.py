@@ -77,23 +77,35 @@ class PoseGraph2D:
     _optimization_problem_type = OptimizationProblem2D
     _is_2d = True
 
-    def __init__(self, options: PoseGraphOptions, thread_pool=None, device=None):
+    def __init__(self, options: PoseGraphOptions, thread_pool=None, device=None, mesh=None):
         """thread_pool: optional common.task.ThreadPool. When given, the
         work queue (loop closure + optimization) drains on pool threads —
         the reference's asynchronous global SLAM (pose_graph_2d.cc
         DrainWorkQueue:520-544); otherwise draining is inline and
-        deterministic. `device=None` means CUDA; pass device="cpu" to run
-        the searches, refinements and solves on the CPU."""
+        deterministic. `device=None` means CUDA (the mesh's device when a
+        mesh is given); pass device="cpu" to run the searches, refinements
+        and solves on the CPU.
+
+        mesh: optional parallel/partition.Mesh. The two scalable backend
+        workloads — the drained loop-closure search batch and the SPA
+        residual tables — are split over its ranks (parallel/sharded.py);
+        None is the single-device behaviour. Every rank must drive the
+        same graph with the same inputs, draining inline: a thread pool
+        with a mesh of more than one rank raises."""
+        if thread_pool is not None and mesh is not None and mesh.world_size > 1:
+            raise ValueError(
+                "a mesh of several ranks needs synchronous drains (thread_pool=None)"
+            )
         self._options = options
         self._thread_pool = thread_pool
         self._work_lock = threading.RLock()
         self._drain_lock = threading.Lock()
         self._pending_task = None
         self._constraint_builder = self._constraint_builder_type(
-            options.constraint_builder, device=device
+            options.constraint_builder, device=device, mesh=mesh
         )
         self._optimization_problem = self._optimization_problem_type(
-            options.optimization_problem, device=device
+            options.optimization_problem, device=device, mesh=mesh
         )
         self._submap_data: MapById = MapById()  # SubmapId -> InternalSubmapData
         self._trajectory_nodes: MapById = MapById()  # NodeId -> TrajectoryNode

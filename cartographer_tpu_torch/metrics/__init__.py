@@ -160,6 +160,7 @@ def _register_all() -> None:
     global pose_graph_constraints_inter, pose_graph_constraints_intra
     global constraint_scores, constraints_found, constraints_searched
     global optimization_runs, beam_overflow_retries
+    global sharded_constraint_batches, sharded_spa_solves
     global pose_graph_work_queue_size, pose_graph_work_queue_delay
     local_slam_latency = _factory.gauge("mapping_2d_local_trajectory_builder_latency")
     local_slam_real_time_ratio = _factory.gauge(
@@ -197,6 +198,12 @@ def _register_all() -> None:
     beam_overflow_retries = _factory.counter(
         "mapping_constraint_builder_beam_overflow_retries"
     )
+    # Production sharded-execution dispatches (loop-closure search batches /
+    # SPA solves partitioned over a device mesh, parallel/sharded.py).
+    sharded_constraint_batches = _factory.counter(
+        "parallel_sharded_constraint_batches"
+    )
+    sharded_spa_solves = _factory.counter("parallel_sharded_spa_solves")
 
 
 _register_all()

@@ -30,6 +30,11 @@ admissible bound.
 Candidates whose scan points fall outside the grid are scored with
 MIN_PROBABILITY for those points instead of being excluded by
 SearchParameters::ShrinkToFit (as in the JAX package).
+
+With a mesh (parallel/partition.Mesh), batch_match_device splits the
+SEARCH axis over the ranks: each rank runs whole searches, and only the
+packed result rows cross ranks (the reference's ThreadPool fan-out,
+constraint_builder_2d.cc:102-136).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from cartographer_tpu_torch.common.config import FastCorrelativeScanMatcherOptio
 from cartographer_tpu_torch.mapping import probability_values as pv
 from cartographer_tpu_torch.mapping.grid_2d import Grid2D
 from cartographer_tpu_torch.ops.scan_matching.correlative_2d import compute_angular_step
+from cartographer_tpu_torch.parallel import partition
 from cartographer_tpu_torch.transform import rigid2
 
 _LEAF_PROBE = 256  # candidates probed at full resolution per level
@@ -84,6 +90,27 @@ def compute_pyramid(prob, depth: int):
         current = torch.maximum(row, shifted)
         levels.append(current)
     return torch.stack(levels)
+
+
+def score_level(pool, ix, iy, point_mask, angle_idx, xoff, yoff, cand_mask):
+    """Scores f32 [C] of candidates (angle_idx, xoff, yoff) [C] at one
+    pyramid level: the mean over the masked points of the level's cells
+    (pool [H, W] of uint8 cell values, read as f32 probabilities), where
+    ix, iy [A, N] are the discretized scan per angle; cells off the grid
+    read MIN_PROBABILITY, and invalid candidates score -inf. The JAX
+    package's `_score_level`; the batched search scores with integer sums
+    instead (`_Search.score`)."""
+    h, w = pool.shape
+    a = angle_idx.long()
+    cix = ix[a] + xoff[:, None]
+    ciy = iy[a] + yoff[:, None]
+    oob = (cix < 0) | (cix >= w) | (ciy < 0) | (ciy >= h)
+    cells = pool[ciy.clamp(0, h - 1).long(), cix.clamp(0, w - 1).long()]
+    vals = cells.to(torch.float32) * (1.0 / _U8_SCALE) + pv.MIN_PROBABILITY
+    vals = torch.where(oob, pv.MIN_PROBABILITY, vals)
+    count = torch.clamp(torch.sum(point_mask), min=1)
+    scores = torch.sum(vals * point_mask[None, :], dim=-1) / count
+    return torch.where(cand_mask, scores, -math.inf)
 
 
 @dataclasses.dataclass
@@ -386,7 +413,20 @@ def _prepare(s):
     )
 
 
-def batch_match_device(searches):
+def _search_rows(preps, rows, beam, device, mesh):
+    """Packed rows of the searches `rows` (indices into `preps`); with a
+    mesh each rank searches its share of `rows` and the rows are gathered
+    exactly (partition.gather_rows)."""
+    if mesh is None:
+        return _search_chunk([preps[r] for r in rows], beam, device)
+    metrics.sharded_constraint_batches.increment()
+    lo, hi = partition.row_range(len(rows), mesh)
+    mine = [preps[r] for r in rows[lo:hi]]
+    local = _search_chunk(mine, beam, device) if mine else np.zeros((0, 5), np.float32)
+    return partition.fetch(torch.from_numpy(local), mesh, len(rows))
+
+
+def batch_match_device(searches, mesh=None):
     """Run K independent searches on the device, as many lanes at once as
     `_GATHER_BUDGET` allows.
 
@@ -399,18 +439,26 @@ def batch_match_device(searches):
     Searches whose beam cap bound (packed column 4) are re-run with a
     doubled beam up to _MAX_WIDENED_BEAM, which restores the reference
     DFS's exactness; every widening pass increments the
-    beam_overflow_retries metric."""
+    beam_overflow_retries metric.
+
+    With `mesh` every rank passes the same searches; each runs its share
+    (partition.row_range) of them, and of each widening pass, and every
+    pass increments the sharded_constraint_batches metric. A search's
+    result does not depend on the searches beside it, so the packed rows
+    equal the unsharded ones bit for bit."""
     if not searches:
         return np.zeros((0, 5), np.float32), []
     preps = [_prepare(s) for s in searches]
     device = preps[0]["m"]._pyramid.device
+    if mesh is not None and not partition.same_device(device, mesh.device):
+        raise ValueError(f"pyramids on {device}, mesh device {mesh.device}")
     beam = preps[0]["m"]._options.beam_width
-    packed = _search_chunk(preps, beam, device)
+    packed = _search_rows(preps, np.arange(len(preps)), beam, device, mesh)
     rows = np.flatnonzero(packed[:, 4] > 0.5)
     while len(rows) and beam < _MAX_WIDENED_BEAM:
         beam = min(2 * beam, _MAX_WIDENED_BEAM)
         metrics.beam_overflow_retries.increment(len(rows))
-        packed[rows] = _search_chunk([preps[r] for r in rows], beam, device)
+        packed[rows] = _search_rows(preps, rows, beam, device, mesh)
         rows = rows[packed[rows, 4] > 0.5]
     return packed, [pr["ctx"] for pr in preps]
 

@@ -34,8 +34,10 @@ histogram (rotational_scan_matcher.cc, min_rotational_score).
   lane (one host synchronisation per level); the slots past them hold
   only pruned candidates.
 
-The JAX package's `mesh` argument (a sharded search batch) returns with
-multi-GPU support.
+With a mesh (parallel/partition.Mesh), batch_match_device_3d splits the
+search axis over the ranks as fast_correlative_2d.batch_match_device
+does: each rank runs whole searches, and the packed rows are gathered
+exactly.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from cartographer_tpu_torch.ops import frontend_common as fc
 from cartographer_tpu_torch.ops.scan_matching import rotational_histogram
 from cartographer_tpu_torch.ops.scan_matching.correlative_2d import compute_angular_step
 from cartographer_tpu_torch.ops.scan_matching.fast_correlative_2d import _rank_keys, _take
+from cartographer_tpu_torch.parallel import partition
 from cartographer_tpu_torch.transform import rigid3
 
 _LEAF_PROBE = 128
@@ -416,23 +419,41 @@ def candidate_scores(prep, candidates):
     return scores[0].cpu().numpy(), lows[0].cpu().numpy()
 
 
-def batch_match_device_3d(preps):
+def batch_match_device_3d(preps, mesh=None):
     """Run the prepared searches (FastCorrelativeScanMatcher3D._prepare
     results) on the device, grouped by shape family (finished submaps are
     cropped to content, so their pyramids differ in shape) and chunked by
     `_GATHER_BUDGET`. Returns (packed [K, 7] numpy, ctxs) aligned with
     `preps`. Searches whose beam cap bound (column 6) are re-run with a
     doubled beam up to _MAX_WIDENED_BEAM; every widening pass increments
-    the beam_overflow_retries metric."""
+    the beam_overflow_retries metric.
+
+    With `mesh` every rank passes the same searches; each runs its share
+    (partition.row_range) of every pass, the packed rows are gathered
+    exactly, and every pass increments sharded_constraint_batches."""
     packed = np.zeros((len(preps), 7), np.float32)
+    if mesh is not None:
+        for pr in preps:
+            device = pr["matcher"]._low_prob.device
+            if not partition.same_device(device, mesh.device):
+                raise ValueError(f"searches on {device}, mesh device {mesh.device}")
 
     def run(indices, beam):
+        indices = np.asarray(list(indices), np.int64)
+        if mesh is not None:
+            metrics.sharded_constraint_batches.increment()
+        lo, hi = partition.row_range(len(indices), mesh)
+        mine = [preps[i] for i in indices[lo:hi]]
+        local = np.zeros((len(mine), 7), np.float32)
         groups = {}
-        for i in indices:
-            groups.setdefault(_shape_key(preps[i]), []).append(i)
+        for j, pr in enumerate(mine):
+            groups.setdefault(_shape_key(pr), []).append(j)
         for idx in groups.values():
-            for chunk in _lane_chunks(preps, idx, beam):
-                packed[chunk] = _search_chunk([preps[i] for i in chunk], beam)
+            for chunk in _lane_chunks(mine, idx, beam):
+                local[chunk] = _search_chunk([mine[j] for j in chunk], beam)
+        if mesh is not None:
+            local = partition.fetch(torch.from_numpy(local), mesh, len(indices))
+        packed[indices] = local
 
     if preps:
         beam = preps[0]["matcher"]._options.beam_width

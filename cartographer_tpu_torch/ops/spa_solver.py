@@ -23,6 +23,13 @@ the stop flag; CG runs its `cg_iterations` steps with the carry frozen
 once converged, as the port's `gauss_newton_2d.match` does.
 `index_add_` on CUDA is not deterministic, so a solve on the card agrees
 with one on the CPU within a tolerance, not bit for bit.
+
+With a `mesh` (parallel/partition.Mesh) the residual tables are this
+rank's rows and the pose tables are replicated: every sum over residual
+rows (J^T u once per CG step and for the gradient, the Jacobi diagonal,
+the costs and the model-change dots) is all-reduced over the mesh, so
+every rank holds the same poses and takes the same branches. Sums over
+pose vectors (the CG dots) stay local. Without a mesh no collective runs.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from cartographer_tpu_torch.ops.scan_matching.gauss_newton_2d import (
     nonmonotonic_init,
     nonmonotonic_quality,
 )
+from cartographer_tpu_torch.parallel.partition import all_reduce
 
 
 class SpaExtras(NamedTuple):
@@ -265,7 +273,16 @@ def _residuals(layout, x, huber_scale):
     return out
 
 
-def _linearize(layout, x, huber_scale):
+def mesh_sum(t, mesh):
+    """`t` summed over the mesh's ranks (in place); `t` without a mesh."""
+    return t if mesh is None else all_reduce(t, mesh)
+
+
+def _cost(residuals, mesh):
+    return mesh_sum(0.5 * sum(torch.sum(r * r) for r in residuals), mesh)
+
+
+def _linearize(layout, x, huber_scale, mesh=None):
     """Residuals at x and the Jacobian as (pose index [R], block [R, 3, 3])
     pairs per family, plus diag(J^T J) of the unweighted-by-Huber
     constraint and node-node rows (the JAX package's Jacobi diagonal)."""
@@ -296,7 +313,7 @@ def _linearize(layout, x, huber_scale):
             fam_blocks = [(fam["start"], wa), (fam["end"], wb)]
         res.append(r)
         blocks.append(fam_blocks)
-    return res, blocks, diag
+    return res, blocks, mesh_sum(diag, mesh)
 
 
 def _jv(blocks, v):
@@ -306,16 +323,16 @@ def _jv(blocks, v):
     ]
 
 
-def _jtu(blocks, us, like):
+def _jtu(blocks, us, like, mesh=None):
     out = torch.zeros_like(like)
     for fam, u in zip(blocks, us):
         for idx, m in fam:
             out.index_add_(0, idx, torch.bmm(m.transpose(1, 2), u[:, :, None])[:, :, 0])
-    return out
+    return mesh_sum(out, mesh)
 
 
-def _dot(us, vs):
-    return sum(torch.sum(u * v) for u, v in zip(us, vs))
+def _dot(us, vs, mesh=None):
+    return mesh_sum(sum(torch.sum(u * v) for u, v in zip(us, vs)), mesh)
 
 
 def solve(
@@ -325,40 +342,40 @@ def solve(
     cg_iterations: int = 64,
     extras: Optional[SpaExtras] = None,
     use_nonmonotonic_steps: bool = False,
+    mesh=None,
 ):
     """Returns (submap_poses, node_poses, final_cost) — plus, when `extras`
     is given, landmark poses and fixed-frame poses before the cost — on
-    the problem's device."""
+    the problem's device. With `mesh`, `p` and `extras` hold this rank's
+    residual rows (parallel/sharded.shard_spa_problem)."""
     layout = _Layout(p, extras)
     free = layout.free
     dev = free.device
     x = layout.x0
-    cost = 0.5 * sum(torch.sum(r * r) for r in _residuals(layout, x, huber_scale))
+    cost = _cost(_residuals(layout, x, huber_scale), mesh)
     f32 = dict(dtype=torch.float32, device=dev)
     radius = torch.full((), 1e4, **f32)
     decrease_factor = torch.full((), 2.0, **f32)
     ev = nonmonotonic_init(cost)
     for _ in range(max_iterations):
-        r0, blocks, diag = _linearize(layout, x, huber_scale)
+        r0, blocks, diag = _linearize(layout, x, huber_scale, mesh)
         # Ceres LM damping: D^T D / radius with D = clamped sqrt(diag).
         damp = torch.clamp(diag, _MIN_DIAGONAL, _MAX_DIAGONAL) / radius
-        grad = _jtu(blocks, r0, x) * free
+        grad = _jtu(blocks, r0, x, mesh) * free
 
         def hvp(v):
             pv_ = v * free
-            jtv = _jtu(blocks, _jv(blocks, pv_), x) * free
+            jtv = _jtu(blocks, _jv(blocks, pv_), x, mesh) * free
             # Identity on the fixed subspace keeps the operator SPD.
             return jtv + damp * pv_ + (v - pv_)
 
         pre = torch.where(free > 0, diag + damp, torch.ones_like(diag))
         dx = _cg(hvp, -grad, pre, cg_iterations) * free
         new_x = x + dx
-        new_cost = 0.5 * sum(
-            torch.sum(r * r) for r in _residuals(layout, new_x, huber_scale)
-        )
+        new_cost = _cost(_residuals(layout, new_x, huber_scale), mesh)
         # Ceres step quality: model cost change from r0 + J dx.
         jdx = _jv(blocks, dx)
-        model_cost_change = -(_dot(r0, jdx) + 0.5 * _dot(jdx, jdx))
+        model_cost_change = -(_dot(r0, jdx, mesh) + 0.5 * _dot(jdx, jdx, mesh))
         valid = model_cost_change > 0.0
         mcc = torch.clamp(model_cost_change, min=1e-30)
         if use_nonmonotonic_steps:

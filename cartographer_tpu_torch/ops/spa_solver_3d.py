@@ -36,6 +36,12 @@ scatter. One host synchronisation per LM iteration reads the stop flag;
 CG runs its `cg_iterations` steps with the carry frozen once converged.
 `index_add_` on CUDA is not deterministic, so a solve on the card agrees
 with one on the CPU within a tolerance, not bit for bit.
+
+With a `mesh` every residual table (constraints, node-node, IMU rotation
+and acceleration rows, landmark and fixed-frame observations) holds this
+rank's rows and the parameter tables are replicated; J^T u, the costs
+and the model-change dots are all-reduced over the mesh, as in
+ops/spa_solver.solve.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from cartographer_tpu_torch.ops.scan_matching.gauss_newton_2d import (
     nonmonotonic_init,
     nonmonotonic_quality,
 )
-from cartographer_tpu_torch.ops.spa_solver import _cg, _tables_to
+from cartographer_tpu_torch.ops.spa_solver import _cg, _tables_to, mesh_sum
 
 
 class SpaProblem3D(NamedTuple):
@@ -612,20 +618,20 @@ def _jv(blocks, v):
     ]
 
 
-def _jtu(blocks, us, like):
+def _jtu(blocks, us, like, mesh=None):
     out = torch.zeros_like(like)
     for fam, u in zip(blocks, us):
         for idx, m in fam:
             out.index_add_(0, idx, torch.bmm(m.transpose(1, 2), u[:, :, None])[:, :, 0])
-    return out
+    return mesh_sum(out, mesh)
 
 
-def _dot(us, vs):
-    return sum(torch.sum(u * v) for u, v in zip(us, vs))
+def _dot(us, vs, mesh=None):
+    return mesh_sum(sum(torch.sum(u * v) for u, v in zip(us, vs)), mesh)
 
 
-def _cost(residuals):
-    return 0.5 * sum(torch.sum(r * r) for r in residuals)
+def _cost(residuals, mesh=None):
+    return mesh_sum(0.5 * sum(torch.sum(r * r) for r in residuals), mesh)
 
 
 def solve_3d(
@@ -635,15 +641,18 @@ def solve_3d(
     cg_iterations: int = 64,
     extras: Optional[SpaExtras3D] = None,
     use_nonmonotonic_steps: bool = False,
+    mesh=None,
 ):
     """Returns (submap_t, submap_q, node_t, node_q, gravity, calib_q,
     cost) — plus, when `extras` is given, (landmark_t, landmark_q,
-    fixed_t, fixed_q) before the cost — on the problem's device."""
+    fixed_t, fixed_q) before the cost — on the problem's device. With
+    `mesh`, `p` and `extras` hold this rank's residual rows
+    (parallel/sharded.shard_spa_problem_3d)."""
     model = _Model(p, extras, huber_scale, torch.float32)
     free = model.mask
     dev = free.device
     x = model.x0()
-    cost = _cost(model.residuals(x))
+    cost = _cost(model.residuals(x), mesh)
     f32 = dict(dtype=torch.float32, device=dev)
     radius = torch.full((), 1e4, **f32)
     decrease_factor = torch.full((), 2.0, **f32)
@@ -652,19 +661,19 @@ def solve_3d(
     for _ in range(max_iterations):
         r0, blocks = model.linearize(x)
         lam = 1.0 / radius
-        grad = _jtu(blocks, r0, x)
+        grad = _jtu(blocks, r0, x, mesh)
 
         def hvp(v):
             pv_ = v * free
             # lam damping on the free dimensions, identity on the rest.
-            return _jtu(blocks, _jv(blocks, pv_), x) + lam * pv_ + (v - pv_)
+            return _jtu(blocks, _jv(blocks, pv_), x, mesh) + lam * pv_ + (v - pv_)
 
         dx = _cg(hvp, -grad, ones, cg_iterations) * free
         new_x = x + dx
-        new_cost = _cost(model.residuals(new_x))
+        new_cost = _cost(model.residuals(new_x), mesh)
         # Ceres step quality: model cost change from r0 + J dx.
         jdx = _jv(blocks, dx)
-        model_cost_change = -(_dot(r0, jdx) + 0.5 * _dot(jdx, jdx))
+        model_cost_change = -(_dot(r0, jdx, mesh) + 0.5 * _dot(jdx, jdx, mesh))
         valid = model_cost_change > 0.0
         mcc = torch.clamp(model_cost_change, min=1e-30)
         if use_nonmonotonic_steps:

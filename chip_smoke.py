@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (cartographer_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --refine-study SECONDS
+
+The second form runs only the backend phase and then `refine_study`:
+the backend drain's card-against-CPU replay on perturbed searches.
 
 Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
@@ -118,8 +122,19 @@ exits non-zero:
    tools/map_builder_server_main runs as a subprocess on written Lua
    files, builds nodes from 40 scans sent over the wire and exits 0 on
    SIGINT.
-11. seconds: each phase's wall seconds.
-12. kernels: one line with every kernel's numbers (the main case) and the
+11. multigpu: the multi-rank backend (parallel/) through
+   tools/multihost_worker at its full width, each rank a process started
+   after the build: (a) one rank over NCCL; (b) two ranks sharing the card
+   over gloo on CUDA tensors (NCCL refuses two ranks on one card), each
+   also driving the 2D production drain (testing/production_dryrun) and
+   (c) the 3D one. Checks: equal costs (rel 1e-6) and pose digests (abs
+   1e-6) across the ranks, (b)'s cost within rel 1e-3 of (a)'s, sharded
+   scores equal to unsharded ones on the card (1e-6), the dryrun's
+   checks, every reported tensor on cuda. Printed: backend and world size
+   of each run, candidates/s per rank, SPA s per solve, the drains'
+   nodes, inter constraints and node errors, window-sum launches (0).
+12. seconds: each phase's wall seconds.
+13. kernels: one line with every kernel's numbers (the main case) and the
    launches of each path above.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -767,11 +782,91 @@ def _angle_diff(a, b):
     return float(abs((a - b + np.pi) % (2 * np.pi) - np.pi))
 
 
+def _pose_diff(a, b):
+    """(metres, radians) between two (x, y, theta) poses."""
+    return float(np.max(np.abs(a[:2] - b[:2]))), _angle_diff(a[2], b[2])
+
+
+def _zbar(cb, submap_id, pose):
+    """A refined pose (the LM's frame) as the constraint's zbar_ij, as
+    ConstraintBuilder2D.run_pending writes it."""
+    sub = np.asarray(cb._submap_local_pose(submap_id), np.float64)
+    ct, st = np.cos(-sub[2]), np.sin(-sub[2])
+    dx, dy = pose[0] - sub[0], pose[1] - sub[1]
+    return np.array([ct * dx - st * dy, st * dx + ct * dy, pose[2] - sub[2]])
+
+
+def lm_iterates(cb, found, lane):
+    """The batched refinement of a drain's BnB results `found` on `cb`'s
+    device, re-run with 0, 1, ..., max_num_iterations LM iterations:
+    lane `lane`'s iterates as rows (zbar_ij, cost) [I + 1, 4]."""
+    jobs = [(s, r) for s, r in found if r is not None]
+    search = jobs[lane][0]
+    solver = cb._options.ceres_scan_matcher.ceres_solver_options
+    its = solver.max_num_iterations
+    out = []
+    try:
+        for k in range(its + 1):
+            solver.max_num_iterations = k
+            row = cb._batch_refine_dispatch(jobs)[lane].cpu().numpy().astype(np.float64)
+            out.append(np.append(_zbar(cb, search.submap_id, row[:3]), row[3]))
+    finally:
+        solver.max_num_iterations = its
+    return np.stack(out)
+
+
+def lm_stop_explained(card, cpu, card_found, cpu_found, lane, card_zbar, cpu_zbar):
+    """A refined pose that the card and the CPU put more than 1e-3 apart
+    is accepted only as one LM run that branched at one accept test: the
+    two BnB results are the same pose; re-running the drain's refinement
+    with 0, 1, ..., max iterations ends on each device at its own refined
+    pose (1e-3 m / 1e-3 rad); and at the first iteration count where the
+    two devices' iterates part by more than 1e-3, exactly one of them
+    stayed where it was (its step was rejected or its lane had stopped)
+    while the other moved. Up to there both ran the same iterates; after
+    it the damping and the nonmonotonic reference differ, and an LM that
+    has not settled (it cycles or wanders: see each side's cost beside
+    the least it reached) ends elsewhere. Returns the lane's stats, or
+    raises."""
+    (search, g), (_, c) = [
+        [(s, r) for s, r in found if r is not None][lane] for found in (card_found, cpu_found)
+    ]
+    where = f"drain replay: {search.submap_id}/{search.node_id}"
+    if _pose_diff(g.pose, c.pose) != (0.0, 0.0):
+        raise AssertionError(
+            f"{where}: the BnB poses differ ({g.pose} on the card, {c.pose} on the CPU)"
+        )
+    on_card = lm_iterates(card, card_found, lane)
+    on_cpu = lm_iterates(cpu, cpu_found, lane)
+    for name, its, z in (("card", on_card, card_zbar), ("CPU", on_cpu, cpu_zbar)):
+        if max(_pose_diff(its[-1], z)) > 1e-3:
+            raise AssertionError(f"{where}: the {name}'s re-run ends at {its[-1]}, not {z}")
+    apart = [k for k in range(len(on_card)) if max(_pose_diff(on_card[k], on_cpu[k])) > 1e-3]
+    if not apart:
+        raise AssertionError(f"{where}: the iterates agree, the refined poses do not")
+    k = apart[0]
+    stayed = [bool(np.array_equal(its[k, :3], its[k - 1, :3])) for its in (on_card, on_cpu)]
+    if stayed[0] == stayed[1]:
+        raise AssertionError(
+            f"{where}: at LM iteration {k} the devices part by "
+            f"{_pose_diff(on_card[k], on_cpu[k])} with "
+            f"{'both' if stayed[0] else 'neither'} staying put"
+        )
+    m, rad = _pose_diff(card_zbar, cpu_zbar)
+    return {
+        "m": m, "rad": rad, "iteration_apart": k,
+        "stayed": "card" if stayed[0] else "cpu",
+        "cost_card": float(on_card[-1, 3]), "least_cost_card": float(np.min(on_card[:, 3])),
+        "cost_cpu": float(on_cpu[-1, 3]), "least_cost_cpu": float(np.min(on_cpu[:, 3])),
+    }
+
+
 def drain_checks(drain, source, options, resolution, device):
     """One drain's searches again: through the CPU port (the same found
     set, BnB scores within 1e-5, refined poses within 1e-3 m / 1e-3 rad
-    of the card's drain), and through the native backend (poses within
-    one cell and 0.01 rad of the device search)."""
+    of the card's drain, or else one LM run that branched at one accept
+    test: `lm_stop_explained`), and through the native backend (poses
+    within one cell and 0.01 rad of the device search)."""
     searches = drain["searches"]
     card = replay_drain(searches, source, options, "device", device)
     card_found = card._run_searches_device(searches)
@@ -795,13 +890,15 @@ def drain_checks(drain, source, options, resolution, device):
     if score_err > 1e-5:
         raise AssertionError(f"drain replay: BnB scores differ by {score_err:.2e}")
     pose_m = pose_rad = 0.0
+    lanes = [(s.submap_id, s.node_id) for s, g in card_found if g is not None]
+    unsettled = []
     for key, z in card_zbar.items():
-        pose_m = max(pose_m, float(np.max(np.abs(cpu_zbar[key][:2] - z[:2]))))
-        pose_rad = max(pose_rad, _angle_diff(cpu_zbar[key][2], z[2]))
-    if pose_m > 1e-3 or pose_rad > 1e-3:
-        raise AssertionError(
-            f"drain replay: refined poses differ by {pose_m:.2e} m, {pose_rad:.2e} rad"
-        )
+        m, rad = _pose_diff(cpu_zbar[key], z)
+        if m > 1e-3 or rad > 1e-3:
+            unsettled.append(lm_stop_explained(
+                card, cpu, card_found, cpu_found, lanes.index(key), z, cpu_zbar[key]))
+            continue
+        pose_m, pose_rad = max(pose_m, m), max(pose_rad, rad)
 
     native = replay_drain(searches, source, options, "native", device)
     t0 = time.perf_counter()
@@ -836,6 +933,8 @@ def drain_checks(drain, source, options, resolution, device):
         "replay_cpu_max_score_err": score_err,
         "replay_cpu_max_m": pose_m,
         "replay_cpu_max_rad": pose_rad,
+        # Lanes held by lm_stop_explained instead of the 1e-3 bound.
+        "replay_cpu_unsettled_lanes": unsettled,
         "replay_native_s": native_s,
         "replay_native_max_m": native_m,
         "replay_native_max_rad": native_rad,
@@ -1034,8 +1133,50 @@ def backend_phase(device, smi):
     }
     emit(r)
     saved = dict(map_builder=mb, state=state, serialize_s=serialize_s,
-                 measurements=measurements, true_poses=true_poses)
+                 measurements=measurements, true_poses=true_poses, drains=drains,
+                 constraint_builder=cb, resolution=resolution,
+                 constraint_options=mb_options.pose_graph.constraint_builder)
     return r, saved
+
+
+def refine_study(device, saved, seconds, seed=1):
+    """`drain_checks` again and again for `seconds` on the backend run's
+    searches, each search's initial pose moved by up to 1 m and 0.2 rad
+    (seeded), the card's own drain of them standing for the run's: how
+    many refined lanes the card and the CPU put within 1e-3 of each
+    other, and each lane that only `lm_stop_explained` accepts. A round
+    that fails is recorded, not raised."""
+    import dataclasses
+
+    cb, options = saved["constraint_builder"], saved["constraint_options"]
+    searches = [s for d in saved["drains"] for s in d["searches"]
+                if s.initial_relative_pose is not None]
+    rng = np.random.default_rng(seed)
+    out = {"phase": "refine_study", "seed": seed, "searches_per_round": len(searches),
+           "rounds": 0, "lanes": 0, "max_m_within_bound": 0.0, "unsettled": [],
+           "failed": []}
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        moved = []
+        for s in searches:
+            p = np.array(s.initial_relative_pose, np.float64)
+            p[:2] += rng.uniform(-1.0, 1.0, 2)
+            p[2] += rng.uniform(-0.2, 0.2)
+            moved.append(dataclasses.replace(s, initial_relative_pose=p))
+        card = replay_drain(moved, cb, options, "device", device)
+        drain = {"searches": moved, "constraints": card.run_pending()}
+        try:
+            res = drain_checks(drain, cb, options, saved["resolution"], device)
+            out["lanes"] += res["replay_found"]
+            out["max_m_within_bound"] = max(out["max_m_within_bound"],
+                                            res["replay_cpu_max_m"])
+            out["unsettled"] += [dict(u, round=out["rounds"])
+                                 for u in res["replay_cpu_unsettled_lanes"]]
+        except AssertionError as e:
+            out["failed"].append({"round": out["rounds"], "why": str(e)})
+        out["rounds"] += 1
+    emit(out)
+    return out
 
 # -- sensors: IMU and odometry, the per-scan path, TSDF, MapBuilder's default
 
@@ -2680,6 +2821,125 @@ def cloud_phase(device, smi):
     return r, server_args
 
 
+MULTIGPU_WORKER_ARGS = ()  # the worker's own defaults: the full width
+MULTIGPU_TIMEOUT_S = 600
+
+
+def worker_ranks(world, backend, device, extra=()):
+    """tools/multihost_worker on `world` ranks joined over localhost
+    (default device cuda:{rank % cards}, `--device cpu` only where
+    `device` is the CPU): each rank's JSON reports by metric."""
+    from cartographer_tpu_torch.parallel.multihost import free_port
+
+    address = f"127.0.0.1:{free_port()}"
+    device_flag = ["--device", "cpu"] if str(device) == "cpu" else []
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "cartographer_tpu_torch.tools.multihost_worker",
+             "--coordinator_address", address, "--num_processes", str(world),
+             "--process_id", str(rank), "--backend", backend, *device_flag,
+             *MULTIGPU_WORKER_ARGS, *extra],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank in range(world)
+    ]
+    outs = []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=MULTIGPU_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"{backend} rank {rank} of {world} exited {proc.returncode}: {err[-3000:]}")
+            lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+            outs.append({r["metric"]: r for r in lines})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def multigpu_phase(device, smi):
+    """The multi-rank backend on one card, through tools/multihost_worker
+    at its full width (4,096 candidates per rank on a 1024^2 pool, A 64,
+    N 512; SPA 10,000 nodes and 30,000 constraints, LM 20, CG 50):
+    (a) one rank over NCCL; (b) two ranks sharing the card over gloo on
+    CUDA tensors, each with the 2D production drain; (c) the 3D
+    production drain on those two ranks. Checks: the ranks' costs (rel
+    1e-6) and pose digests (abs 1e-6) agree, (b)'s cost is within rel 1e-3
+    of (a)'s, the sharded scores equal score_level unsharded on the card
+    (1e-6), the dryrun's checks on every rank, and every tensor the ranks
+    report (scores, poses, collectives, pyramids) lies on the card."""
+    from cartographer_tpu_torch.testing.production_dryrun import (
+        check_drain_2d,
+        check_drain_3d,
+    )
+
+    t_phase = time.perf_counter()
+    on_card = str(device) != "cpu"
+    kind = "cuda" if on_card else "cpu"
+
+    def check_rank(reports, backend, world):
+        score, spa = reports["sharded_candidate_scores"], reports["sharded_spa_solve"]
+        for r in (score, spa):
+            if (r["backend"], r["num_processes"]) != (backend, world):
+                raise AssertionError(f"run as {r['backend']} x {r['num_processes']}")
+        if score["max_abs_err_vs_unsharded"] > 1e-6:
+            raise AssertionError(f"sharded scores off by {score['max_abs_err_vs_unsharded']}")
+        devices = {score["device"], score["scores_device"], spa["poses_device"]}
+        if {d.split(":")[0] for d in devices} != {kind} or set(spa["collectives"]) != {kind}:
+            raise AssertionError(f"tensors on {devices}, collectives {spa['collectives']}")
+        return {"candidates_per_s_per_rank": score["items_per_sec_per_device"],
+                "spa_s_per_solve": spa["seconds"], "final_cost": spa["final_cost"],
+                "collectives": spa["collectives"][kind]}
+
+    # (a) one rank over NCCL.
+    t0 = time.perf_counter()
+    backend_a = "nccl" if on_card else "gloo"
+    (one,) = worker_ranks(1, backend_a, device)
+    run_a = {"backend": backend_a, "world_size": 1, **check_rank(one, backend_a, 1),
+             "run_s": time.perf_counter() - t0}
+    # (b) and (c): two ranks on the one card over gloo.
+    t0 = time.perf_counter()
+    duo = worker_ranks(2, "gloo", device, ("--production", "--production_3d"))
+    ranks = [check_rank(reports, "gloo", 2) for reports in duo]
+    costs = [r["final_cost"] for r in ranks]
+    if abs(costs[0] - costs[1]) > 1e-6 * abs(costs[0]):
+        raise AssertionError(f"ranks disagree on the SPA cost: {costs}")
+    if abs(costs[0] - run_a["final_cost"]) > 1e-3 * abs(run_a["final_cost"]):
+        raise AssertionError(f"two ranks' cost {costs[0]} against one rank's {run_a['final_cost']}")
+    drains = {}
+    for name, check in (("production_drain_2d", check_drain_2d),
+                        ("production_drain_3d", check_drain_3d)):
+        stats = [reports[name] for reports in duo]
+        for st in stats:
+            check(st)
+            if st["tensor_devices"] != [kind]:
+                raise AssertionError(f"{name} tensors on {st['tensor_devices']}")
+        if abs(stats[0]["pose_digest"] - stats[1]["pose_digest"]) > 1e-6:
+            raise AssertionError(f"ranks disagree on {name}: "
+                                 f"{[st['pose_digest'] for st in stats]}")
+        drains[name] = {k: stats[0][k] for k in (
+            "num_nodes", "inter_constraints", "max_node_error_m", "travel_m",
+            "sharded_search_batches", "sharded_spa_solves", "seconds")}
+        drains[name]["window_launches"] = sum(st["window_launches"] for st in stats)
+    run_b = {"backend": "gloo", "world_size": 2, "ranks": ranks,
+             "run_s": time.perf_counter() - t0}
+    r = {
+        "phase": "multigpu",
+        "one_rank": run_a,
+        "two_ranks": run_b,
+        "drains": drains,
+        "window_launches": sum(d["window_launches"] for d in drains.values()),
+        "phase_s": time.perf_counter() - t_phase,
+        "card": smi,
+    }
+    emit(r)
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -2713,6 +2973,12 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
+    if "--refine-study" in sys.argv:
+        study_s = float(sys.argv[sys.argv.index("--refine-study") + 1])
+        _, saved_2d = backend_phase(device, smi)
+        study = refine_study(device, saved_2d, study_s)
+        return 1 if study["failed"] else 0
+
     kernels = timed("kernel", kernel_phase, device)
     sl, real_args = timed("slice", slice_phase, device, smi)
     kernels["real"] = kernel_case("real", real_args)
@@ -2726,6 +2992,7 @@ def main() -> int:
     kernels["localization"] = kernel_case("localization", localization_args)
     cl, cloud_args = timed("cloud", cloud_phase, device, smi)
     kernels["cloud"] = kernel_case("cloud", cloud_args)
+    mg = timed("multigpu", multigpu_phase, device, smi)
     emit({"phase": "seconds", **seconds, "card": smi})
 
     # Each path's launches, counted from 0 just before it was driven.
@@ -2743,6 +3010,7 @@ def main() -> int:
         "persist_imu_based_3d": pe["imu_based_3d"]["launches"]["correlative_window"],
         "cloud_server": cl["server"]["launches"]["correlative_window"],
         "cloud_uplink": cl["uplink"]["launches"]["correlative_window"],
+        "multigpu": mg["window_launches"],
     }
     main_case = kernels["main"]
     emit({"kernels": [{

@@ -58,6 +58,9 @@ local_slam += ["common.blocking_queue", "common.rate_timer", "common.math", "com
                "tools.map_builder_server_main", "tools.print_configuration",
                "tools.pbstream_main", "tools.autogenerate_ground_truth_main",
                "tools.compute_relations_metrics_main", "testing.server_config"]
+# The multi-rank slice's modules.
+local_slam += ["parallel", "parallel.partition", "parallel.sharded", "parallel.multihost",
+               "testing.production_dryrun", "tools.multihost_worker"]
 missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print(len(names))
