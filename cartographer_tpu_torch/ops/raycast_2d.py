@@ -16,12 +16,18 @@ so the [N, H, W/32] lattice is never held whole. `insert_scan` instead
 scatters the two cells beside every integer boundary crossing of each ray
 (the exact supercover). All coordinates here are fractional cell units.
 Both results are bit-identical to the JAX functions.
+
+For CUDA tensors `insert_scan` and `insert_scan_dense` launch the
+hand-written kernels (kernels/supercover_2d.py), bit-identical to the
+plain versions here (`insert_scan_plain`, `insert_scan_dense_plain`),
+which run for CPU tensors only.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cartographer_tpu_torch.kernels import supercover_2d
 from cartographer_tpu_torch.mapping import probability_values as pv
 
 # Int32 words per ray chunk of the [B, rays, H, W/32] lattice (16 MiB).
@@ -38,6 +44,33 @@ def _scatter_true(grid_flat, ix, iy, sel, h: int, w: int):
 
 
 def insert_scan(
+    log_odds,  # f32 [H, W]
+    known,  # bool [H, W]
+    origin_cell,  # f32 [2] (cx, cy)
+    ends_cell,  # f32 [N, 2] hit + missing-echo endpoints
+    is_hit,  # bool [N]
+    valid,  # bool [N] padding mask
+    hit_log_odds: float,
+    miss_log_odds: float,
+    num_steps: int,
+    insert_free_space: bool = True,
+):
+    """One range-data insertion by the exact-supercover scatter: the CUDA
+    kernel for CUDA tensors, `insert_scan_plain` for CPU tensors. Returns
+    (log_odds', known')."""
+    if log_odds.is_cuda:
+        return supercover_2d.insert_scan(
+            log_odds.contiguous(), known.contiguous(), origin_cell.contiguous(),
+            ends_cell.contiguous(), is_hit.contiguous(), valid.contiguous(),
+            hit_log_odds, miss_log_odds, num_steps, insert_free_space,
+        )
+    return insert_scan_plain(
+        log_odds, known, origin_cell, ends_cell, is_hit, valid, hit_log_odds,
+        miss_log_odds, num_steps, insert_free_space,
+    )
+
+
+def insert_scan_plain(
     log_odds,  # f32 [H, W]
     known,  # bool [H, W]
     origin_cell,  # f32 [2] (cx, cy)
@@ -158,6 +191,32 @@ def _unpack_bits(words, width: int):
 
 
 def insert_scan_dense(
+    log_odds,  # f32 [H, W] or [B, H, W]
+    known,  # bool [H, W] or [B, H, W]
+    origin_cell,  # f32 [2] or [B, 2] (cx, cy)
+    ends_cell,  # f32 [N, 2] or [B, N, 2]
+    is_hit,  # bool [N]
+    valid,  # bool [N]
+    hit_log_odds: float,
+    miss_log_odds: float,
+    insert_free_space: bool = True,
+):
+    """One range-data insertion per grid by supercover row intervals: the
+    CUDA kernel for CUDA tensors, `insert_scan_dense_plain` for CPU
+    tensors. Returns (log_odds', known'); the inputs are not modified."""
+    if log_odds.is_cuda:
+        return supercover_2d.insert_scan_dense(
+            log_odds.contiguous(), known.contiguous(), origin_cell.contiguous(),
+            ends_cell.contiguous(), is_hit.contiguous(), valid.contiguous(),
+            hit_log_odds, miss_log_odds, insert_free_space,
+        )
+    return insert_scan_dense_plain(
+        log_odds, known, origin_cell, ends_cell, is_hit, valid, hit_log_odds,
+        miss_log_odds, insert_free_space,
+    )
+
+
+def insert_scan_dense_plain(
     log_odds,  # f32 [H, W] or [B, H, W]
     known,  # bool [H, W] or [B, H, W]
     origin_cell,  # f32 [2] or [B, 2] (cx, cy)

@@ -18,12 +18,17 @@ max correspondence cost. The 4x4 patch is read with a direct gather from
 a shared grid stack by lane index. The loop runs `max_iterations` steps
 and freezes each lane's carry once it converged, which gives the JAX
 while_loop's result with no host synchronisation.
+
+For CUDA tensors `match_lanes`, `match` and `match_log_odds_batch` launch
+the hand-written kernel (kernels/lm_match_2d.py, one block per lane runs
+the whole loop); for CPU tensors they run `match_lanes_plain`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cartographer_tpu_torch.kernels import lm_match_2d
 from cartographer_tpu_torch.mapping import probability_values as pv
 
 # Ceres TrustRegionStepEvaluator (Conn/Gould/Toint Algorithm 10.1.2)
@@ -154,9 +159,19 @@ def match(
     max_iterations: int = 20,
     use_nonmonotonic_steps: bool = False,
 ):
-    """Returns (pose [3], final cost): one lane of `match_lanes`."""
+    """Returns (pose [3], final cost): one lane of `match_lanes`. On CUDA
+    one kernel launch, with the resolution and the grid as arguments (no
+    per-call tensors but the output)."""
+    if cost_grid.is_cuda:
+        out = lm_match_2d.launch(
+            cost_grid.contiguous(), origin, initial_pose, target_translation,
+            points, point_mask, occupied_space_weight, translation_weight,
+            rotation_weight, max_iterations, use_nonmonotonic_steps,
+            resolution=resolution,
+        )
+        return out[0, :3], out[0, 3]
     dev = cost_grid.device
-    pose, cost = match_lanes(
+    pose, cost = match_lanes_plain(
         cost_grid[None],
         torch.zeros(1, dtype=torch.int32, device=dev),
         origin[None],
@@ -175,6 +190,40 @@ def match(
 
 
 def match_lanes(
+    cost_grids,  # f32 [S, H, W] correspondence costs (unknown -> 0.9)
+    grid_index,  # i32 [K] each lane's grid in the stack
+    origins,  # f32 [K, 2]
+    initial_poses,  # f32 [K, 3]
+    target_translations,  # f32 [K, 2]
+    points,  # f32 [K, N, 2]
+    point_masks,  # bool [K, N]
+    resolutions,  # f32 [K]
+    occupied_space_weight: float,
+    translation_weight: float,
+    rotation_weight: float,
+    max_iterations: int = 20,
+    use_nonmonotonic_steps: bool = False,
+):
+    """K independent LM refinements: returns (poses [K, 3], final costs
+    [K]). The CUDA kernel for CUDA tensors, `match_lanes_plain` for CPU
+    tensors."""
+    if cost_grids.is_cuda:
+        out = lm_match_2d.launch(
+            cost_grids.contiguous(), origins, initial_poses, target_translations,
+            points, point_masks, occupied_space_weight, translation_weight,
+            rotation_weight, max_iterations, use_nonmonotonic_steps,
+            grid_index=grid_index, resolutions=resolutions,
+        )
+        return out[:, :3], out[:, 3]
+    return match_lanes_plain(
+        cost_grids, grid_index, origins, initial_poses, target_translations,
+        points, point_masks, resolutions, occupied_space_weight,
+        translation_weight, rotation_weight, max_iterations,
+        use_nonmonotonic_steps,
+    )
+
+
+def match_lanes_plain(
     cost_grids,  # f32 [S, H, W] correspondence costs (unknown -> 0.9)
     grid_index,  # i32 [K] each lane's grid in the stack
     origins,  # f32 [K, 2]
@@ -545,11 +594,19 @@ def match_log_odds_batch(
     one batched LM. The small per-match arrays are plain tensors (the JAX
     version packed them into one uint8 upload for a remote-attached TPU);
     each lane reads its grid from the shared stack by index, while its
-    cloud ([N, 2], small) is gathered. Returns [K, 4] rows (x, y, theta,
-    cost)."""
+    cloud ([N, 2], small) is gathered (on CUDA the kernel reads it by
+    index too). Returns [K, 4] rows (x, y, theta, cost)."""
+    cost_grids = cost_grids_from_log_odds(log_odds, known)
+    if cost_grids.is_cuda:
+        return lm_match_2d.launch(
+            cost_grids, origins, initial_poses, target_translations, cloud_pts,
+            cloud_msk, occupied_space_weight, translation_weight,
+            rotation_weight, max_iterations, use_nonmonotonic_steps,
+            grid_index=sidx, cloud_rows=rows, resolutions=resolutions,
+        )
     rows = rows.long()
-    poses, costs = match_lanes(
-        cost_grids_from_log_odds(log_odds, known),
+    poses, costs = match_lanes_plain(
+        cost_grids,
         sidx,
         origins,
         initial_poses,

@@ -26,7 +26,7 @@ def _drain_stats(mb, mesh, direction, travel, duration, counts0):
     they computed the same drain) and the device types the run's tensors
     lay on (its collectives', its searches' pyramids')."""
     from cartographer_tpu_torch import metrics
-    from cartographer_tpu_torch.kernels import correlative_window
+    from cartographer_tpu_torch.kernels import launch_counts
     from cartographer_tpu_torch.mapping.id import NodeId
     from cartographer_tpu_torch.testing.synthetic import FAKE_START_TIME
     from cartographer_tpu_torch.transform import rigid3
@@ -57,20 +57,20 @@ def _drain_stats(mb, mesh, direction, travel, duration, counts0):
         "max_node_error_m": float(max(errs)) if errs else float("nan"),
         "travel_m": travel,
         "pose_digest": float(np.sum(np.round(np.stack(poses), 6))),
-        "window_launches": correlative_window.LAUNCHES - launches0,
+        "launches": {k: n - launches0[k] for k, n in launch_counts().items()},
         "tensor_devices": sorted(devices),
     }
 
 
 def _counts():
     from cartographer_tpu_torch import metrics
-    from cartographer_tpu_torch.kernels import correlative_window
+    from cartographer_tpu_torch.kernels import launch_counts
 
     metrics.enable_collection()
     return (
         metrics.sharded_constraint_batches.value(),
         metrics.sharded_spa_solves.value(),
-        correlative_window.LAUNCHES,
+        launch_counts(),
     )
 
 

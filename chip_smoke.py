@@ -5,7 +5,10 @@
     python3 chip_smoke.py --refine-study SECONDS
 
 The second form runs only the backend phase and then `refine_study`:
-the backend drain's card-against-CPU replay on perturbed searches.
+the backend drain's card-against-CPU replay on perturbed searches, each
+round's drain refinement also held at 1e-4 three ways (the LM kernel
+against the plain version on the card and on the CPU, the plain version
+on the card against it on the CPU), and a BnB score mismatch diagnosed.
 
 Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
@@ -20,15 +23,33 @@ exits non-zero:
    graphs of 20 calls, single-call times with launch latency, an empty
    kernel's time on the same launch shape (the launch floor), and the
    bound from the whole grid and from the grid sectors the inputs touch.
+   kernel_2d: the 2D main path's device loops the same way: the LM scan
+   match (lm_match_2d) at the frontend's shape, a 69-lane drain's and an
+   edge case (a masked lane, a lane off the grid, N = 37, shared grids,
+   K = 0), every lane within 1e-4 m / rad and rel 1e-4 in cost or else
+   one run that branched at one accept test (lm_stop_explained's rule
+   on the kernel's and the plain version's iterates; counted); both
+   supercover insertions bit for bit (the chunked frontend's two 1024^2
+   slots and the per-scan builder's 1024^2 grid, and edge grids 64 x
+   300 with horizontal, vertical and off-grid rays and corner ends, B 1
+   and 2, free space off); two launches equal; bounds from the bytes the
+   function must move (for the LM the distinct grid sectors that its
+   patches cover along the accepted poses) and the operations counted
+   from the sources.
 4. slice: the chunked 2D local-SLAM frontend
    (ChunkedLocalTrajectoryBuilder2D on cuda) over the first 200 of the
    synthetic loop world's 300 scans, with online correlative matching
-   on: kernel launch counts from that run only, the error against ground
+   on: each kernel's launches from that run only (window sums, the LM
+   and the dense insertion at least once per matched scan, the scatter
+   none), the error against ground
    truth, every scan of the first two chunks rerun on the CPU from the
    GPU's state before it (identical flags, poses within 1e-3), and one
    chunk under torch.profiler for the device's busy share. The inputs of
-   the run's first window-sum call of the third chunk (cloned once by the
-   recording wrapper) become the kernel phase's "real" case.
+   the run's first window-sum, LM and dense-insertion calls of the third
+   chunk (cloned once by the recording wrapper) become the kernel
+   phases' "real" cases; the backend phase's drain refinement with the
+   most lanes is the LM's "real_refine" case, and the per-scan path's
+   11th scatter insertion the scatter's "real" case.
 5. backend: MapBuilder on cuda over half a lap of bench.py's scaled world
    (500 scans of 1024 beams) with bench.py's backend settings and the
    asynchronous pose graph: the frontend, loop-closure searches through
@@ -61,7 +82,8 @@ exits non-zero:
    options (100 scans; its first 8 scans rerun by a CPU copy): scans/s,
    real-time ratio, final and max position error against ground truth
    (limit 0.5 m), dropped grid writes (must be 0), a profile over warm
-   scans, and window-sum launches (0: no 2D kernel on the 3D paths).
+   scans, and launches of the four 2D kernels (0: none runs on a 3D
+   path).
 8. backend_3d: MapBuilder's 3D route on cuda (per-scan builder, PoseGraph3D
    with asynchronous drains, the native 3D branch-and-bound, the batched
    dual-grid LM refinement, SPA 3D) over the first 150 scans of the
@@ -75,7 +97,7 @@ exits non-zero:
    the CPU (the final
    one as a record), and profiles of a drain of each backend and of the
    final solve.
-   No hand-written kernel runs there: window-sum launches 0.
+   No hand-written kernel runs there: launches of the four 2D kernels 0.
    The backend and backend_3d phases end by serializing their maps
    (MapBuilder.serialize_state, timed) for the next phase.
 9. persist: saved maps on cuda. The backend phase's 2D state is loaded
@@ -88,7 +110,8 @@ exits non-zero:
    matching and the pure-localization trimmer keeping 3 submaps) is fed
    the world's first 150 scans again, 100 s later: node error against the
    truth in the frozen map's frame (limit 0.3 m from node 8), INTER
-   constraints to the map, submaps kept, scans/s, window-sum launches;
+   constraints to the map, submaps kept, scans/s, launches (window
+   sums, the LM and the dense insertion at least once a new node);
    the inputs of its first window-sum call become the kernel phase's
    "localization" case. The backend_3d phase's state is loaded on cuda
    and on the CPU (poses within 1e-6, dense grids equal to to_dense of the
@@ -107,7 +130,8 @@ exits non-zero:
    subscribes to local-SLAM results and optimization events and streams
    the first 200 scans of the sensors phase's world (with its IMU and
    odometry) through the per-sensor streaming RPCs, unpaced, then calls
-   FinishTrajectory and RunFinalOptimization. Checks: window-sum launches,
+   FinishTrajectory and RunFinalOptimization. Checks: launches (window
+   sums, the LM and the scatter insertion),
    node poses over the wire equal to the server's, node error from node 8
    (limit 0.3 m), a local-SLAM result for every node, an optimization
    event, WriteState's records equal to the server's own state,
@@ -132,10 +156,16 @@ exits non-zero:
    scores equal to unsharded ones on the card (1e-6), the dryrun's
    checks, every reported tensor on cuda. Printed: backend and world size
    of each run, candidates/s per rank, SPA s per solve, the drains'
-   nodes, inter constraints and node errors, window-sum launches (0).
+   nodes, inter constraints and node errors, and each rank's launches:
+   the 2D drain (the per-scan builder) the LM kernel at least once a node
+   but the first and the scatter insertion once a node, no dense
+   insertion; the 3D drain none of the four 2D kernels.
 12. seconds: each phase's wall seconds.
-13. kernels: one line with every kernel's numbers (the main case) and the
-   launches of each path above.
+13. kernels: one line with every kernel's numbers (the main case), each
+   kernel's launches on each path above, and every case. Every 2D
+   probability-grid path launches the LM kernel, every chunked 2D path
+   the dense insertion and every per-scan 2D path the scatter; the TSDF
+   and 3D paths launch none of the three (checked where each runs).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script fails before printing a result. It
@@ -368,6 +398,381 @@ def kernel_phase(device):
     }
 
 
+# -- the 2D main path's device loops: lm_match_2d and supercover_2d
+
+# Agreement of the LM kernel with its plain version, per lane: metres and
+# radians, and relative in cost (the sums run in another order).
+LM_TOL = 1e-4
+# Floating-point operations the kernels do, counted from their sources:
+# the LM per valid point and patch read (the Jacobian's weights and
+# contractions at the accepted pose, the candidate's cost), the dense
+# insertion per (grid, ray, row), the scatter per (ray, crossing step).
+LM_OPS_PER_POINT = 220
+DENSE_OPS_PER_ROW = 12
+SCATTER_OPS_PER_STEP = 24
+# The 2D frontend's insertion probabilities (hit 0.55, miss 0.49).
+HIT_LOG_ODDS = float(np.log(0.55 / 0.45))
+MISS_LOG_ODDS = float(np.log(0.49 / 0.51))
+LM_LAUNCH_ARGS = (
+    "cost_grids", "origins", "initial_poses", "target_translations", "points",
+    "point_masks", "occupied_space_weight", "translation_weight",
+    "rotation_weight", "max_iterations", "use_nonmonotonic_steps",
+)
+
+
+def lm_inputs(case, device, weights, iterations, nonmonotonic):
+    """lm_match_2d.launch's arguments by name on `device` for one
+    testing/kernel_cases_2d.lm_case."""
+    import torch
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    c = case
+    return dict(
+        zip(LM_LAUNCH_ARGS, (
+            t(c["grids"]), t(c["origins"]), t(c["initial"]), t(c["targets"]),
+            t(c["points"]), t(c["masks"]), *weights, iterations, nonmonotonic)),
+        grid_index=t(c["grid_index"]), resolutions=t(c["resolutions"]),
+    )
+
+
+def lm_plain(inp, max_iterations=None):
+    """The plain version on the kernel's arguments: [K, 4] rows."""
+    import torch
+
+    from cartographer_tpu_torch.ops.scan_matching import gauss_newton_2d as gn
+
+    grids = inp["cost_grids"]
+    grids = grids if grids.dim() == 3 else grids[None]
+    lanes = lambda x, width: x.reshape(-1, width)  # noqa: E731
+    initial = lanes(inp["initial_poses"], 3)
+    k, dev = initial.shape[0], grids.device
+    points, masks = inp["points"], inp["point_masks"]
+    points = points if points.dim() == 3 else points[None]
+    masks = masks if masks.dim() == 2 else masks[None]
+    rows = inp.get("cloud_rows")
+    if rows is not None:
+        points, masks = points[rows.long()], masks[rows.long()]
+    grid_index = inp.get("grid_index")
+    if grid_index is None:
+        grid_index = torch.zeros(k, dtype=torch.int32, device=dev)
+    resolutions = inp.get("resolutions")
+    if resolutions is None:
+        resolutions = torch.full((k,), inp["resolution"], dtype=torch.float32, device=dev)
+    pose, cost = gn.match_lanes_plain(
+        grids, grid_index, lanes(inp["origins"], 2), initial,
+        lanes(inp["target_translations"], 2), points, masks, resolutions,
+        inp["occupied_space_weight"], inp["translation_weight"], inp["rotation_weight"],
+        inp["max_iterations"] if max_iterations is None else max_iterations,
+        inp["use_nonmonotonic_steps"],
+    )
+    return torch.cat([pose, cost[:, None]], dim=1)
+
+
+def branched_at(a, b, tol):
+    """Where two runs of one LM lane part. `a` and `b` are the lane's
+    iterates on either side, rows (x, y, theta, ...) after 0, 1, ...,
+    max iterations. At the first count where their poses differ by more
+    than `tol` (m or rad), exactly one side must have stayed where it was
+    (its step was rejected or its lane had stopped) while the other
+    moved: up to there both ran the same iterates, after it the damping
+    and the nonmonotonic reference differ. Returns (that count, the side
+    that stayed: 0 or 1); raises AssertionError for iterates that never
+    part, part from the start, or part with both or neither staying."""
+    apart = [i for i in range(len(a)) if max(_pose_diff(a[i], b[i])) > tol]
+    if not apart:
+        raise AssertionError("the iterates agree, the results do not")
+    i = apart[0]
+    if i == 0:
+        raise AssertionError(f"the runs start {_pose_diff(a[0], b[0])} apart")
+    stayed = [bool(np.array_equal(x[i, :3], x[i - 1, :3])) for x in (a, b)]
+    if stayed[0] == stayed[1]:
+        raise AssertionError(
+            f"at LM iteration {i} the two part by {_pose_diff(a[i], b[i])} with "
+            f"{'both' if stayed[0] else 'neither'} staying put")
+    return i, 0 if stayed[0] else 1
+
+
+def lm_kernel_iterates(inp):
+    """The kernel's rows [I + 1, K, 4] on the card after 0, 1, ..., I =
+    max_iterations iterations."""
+    import torch
+
+    from cartographer_tpu_torch.kernels import lm_match_2d as lm
+
+    return torch.stack([lm.launch(**{**inp, "max_iterations": i})
+                        for i in range(inp["max_iterations"] + 1)])
+
+
+def lm_lanes_compare(inp, got, want, plain_inp=None, got_iterates=None):
+    """Each lane of the kernel's rows `got` against the plain version's
+    `want` (run on `plain_inp`, by default `inp`): within LM_TOL (m, rad,
+    relative cost), or else one LM run that branched at one accept test
+    (branched_at on the two versions' iterates at LM_TOL; `got_iterates()`
+    gives `got`'s, by default the kernel's on `inp`). Returns the
+    worst errors of the lanes within LM_TOL, the count beyond it, the
+    branched lanes and the unexplained ones (with how far apart the
+    iterates stand after each iteration); the caller decides what an
+    unexplained lane means."""
+    plain_inp = inp if plain_inp is None else plain_inp
+    g = got.cpu().numpy().astype(np.float64)
+    p = want.cpu().numpy().astype(np.float64)
+    m = np.max(np.abs(g[:, :2] - p[:, :2]), axis=1, initial=0.0)
+    rad = np.abs((g[:, 2] - p[:, 2] + np.pi) % (2 * np.pi) - np.pi)
+    # Relative in cost, against at least 1e-6 (a lane whose points are all
+    # masked ends on its prior with a cost of 0 up to rounding).
+    rel = np.abs(g[:, 3] - p[:, 3]) / np.maximum(np.abs(p[:, 3]), 1e-6)
+    bad = np.nonzero((m > LM_TOL) | (rad > LM_TOL) | (rel > LM_TOL))[0]
+    branched, unexplained = [], []
+    if len(bad):
+        its = inp["max_iterations"]
+        on_card = (got_iterates or (lambda: lm_kernel_iterates(inp)))().cpu().numpy()
+        plain = np.stack([lm_plain(plain_inp, i).cpu().numpy() for i in range(its + 1)])
+        for lane in bad:
+            a, b = on_card[:, lane].astype(np.float64), plain[:, lane].astype(np.float64)
+            row = {"lane": int(lane), "m": float(m[lane]), "rad": float(rad[lane]),
+                   "cost_rel": float(rel[lane]), "cost_kernel": float(g[lane, 3]),
+                   "cost_plain": float(p[lane, 3])}
+            try:
+                i, side = branched_at(a, b, LM_TOL)
+            except AssertionError as e:
+                unexplained.append({**row, "why": str(e), "apart_by_iteration": [
+                    max(_pose_diff(a[j], b[j])) for j in range(its + 1)]})
+                continue
+            branched.append({**row, "iteration_apart": i, "stayed": ("kernel", "plain")[side]})
+    good = np.setdiff1d(np.arange(len(g)), bad)
+    return {
+        "max_abs_err": float(max(np.max(m[good], initial=0.0), np.max(rad[good], initial=0.0))),
+        "max_m": float(np.max(m[good], initial=0.0)),
+        "max_rad": float(np.max(rad[good], initial=0.0)),
+        "max_cost_rel_err": float(np.max(rel[good], initial=0.0)),
+        "max_cost_rel_err_all": float(np.max(rel, initial=0.0)),
+        "lanes_beyond_tol": len(bad),
+        "branched_lanes": len(branched),
+        "branched": branched,
+        "unexplained": unexplained,
+    }
+
+
+def lm_path_sectors(inp, rows):
+    """Distinct 32-byte sectors of the cost grids that the lanes' 4 x 4
+    patches cover at every pose the run accepted (`rows` [I + 1, K, 4]:
+    the kernel after 0, 1, ..., I iterations) over their masked points.
+    A rejected candidate's patches are not counted, so the count errs
+    low."""
+    import torch
+
+    grids = inp["cost_grids"]
+    h, w = grids.shape[-2:]
+    dev, k = grids.device, rows.shape[1]
+    n = inp["points"].shape[-2]
+    points, masks = inp["points"].reshape(-1, n, 2), inp["point_masks"].reshape(-1, n)
+    if inp.get("cloud_rows") is not None:
+        points, masks = points[inp["cloud_rows"].long()], masks[inp["cloud_rows"].long()]
+    origins = inp["origins"].reshape(-1, 2)
+    res = inp.get("resolutions")
+    res = (torch.full((k,), inp["resolution"], device=dev) if res is None
+           else res.reshape(-1))
+    gi = inp.get("grid_index")
+    gi = torch.zeros(k, dtype=torch.int64, device=dev) if gi is None else gi.reshape(-1).long()
+    pose = rows[..., :3].to(torch.float32)[:, :, None, :]  # [I + 1, K, 1, 3]
+    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
+    px, py = points[None, ..., 0], points[None, ..., 1]
+    u = (c * px - s * py + pose[..., 0] - origins[None, :, 0:1]) / res[None, :, None] - 0.5
+    v = (s * px + c * py + pose[..., 1] - origins[None, :, 1:2]) / res[None, :, None] - 0.5
+    offs = torch.arange(-1, 3, device=dev)
+    row = torch.floor(v).long()[..., None, None] + offs[:, None]
+    col = torch.floor(u).long()[..., None, None] + offs[None, :]
+    row, col = torch.broadcast_tensors(row, col)
+    keep = ((row >= 0) & (row < h) & (col >= 0) & (col < w)
+            & masks[None, :, :, None, None])
+    flat = (gi[None, :, None, None, None] * h + row) * w + col
+    return int(torch.unique(flat[keep] // (32 // grids.element_size())).numel())
+
+
+def timings(r, kernel, plain):
+    """The kernel's device time (CUDA graphs) and call time; the plain
+    version's device time as the sum of its kernels' times over one call
+    under torch.profiler (the plain LM copies Python scalars into tensors,
+    which a CUDA graph cannot capture), its kernels and its call time."""
+    r["kernel_ms"] = device_time_ms(kernel)
+    r["kernel_call_ms"] = call_time_ms(kernel)
+    plain()
+    profile = device_profile(plain, 1)
+    r["plain_ms"] = profile["device_busy_ms"]
+    r["plain_kernels"] = profile["kernels"]
+    r["plain_call_ms"] = call_time_ms(plain, warmup=1, reps=5)
+
+
+def bound(r, nbytes, ops):
+    """The least time for the work: bytes at the HBM rate or f32
+    operations at the card's peak, the larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    r.update(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def lm_case(name, inp):
+    """lm_match_2d against its plain version on one case (every lane by
+    lm_lanes_compare, an unexplained lane fails; two launches bit-equal),
+    with times and the bound: the grid sectors that the patches along
+    the run's accepted poses cover (lm_path_sectors), every other input
+    read once and the rows written once; the operations of the valid
+    points' (iterations run + 1) patch evaluations."""
+    import torch
+
+    from cartographer_tpu_torch.kernels import lm_match_2d as lm
+
+    k = inp["initial_poses"].reshape(-1, 3).shape[0]
+    its = torch.zeros(k, dtype=torch.int32, device=inp["cost_grids"].device)
+    got = lm.launch(**inp, iterations=its)
+    again = lm.launch(**inp)
+    want = lm_plain(inp)
+    rows = lm_kernel_iterates(inp)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"lm_match_2d {name}: a second launch gave other rows")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"lm_match_2d {name}: non-finite rows")
+    compared = lm_lanes_compare(inp, got, want, got_iterates=lambda: rows)
+    for u in compared["unexplained"]:
+        raise AssertionError(
+            f"lm_match_2d {name}: lane {u['lane']}: kernel and plain differ "
+            f"({u['m']:.2e} m, {u['rad']:.2e} rad, rel cost {u['cost_rel']:.2e}) "
+            f"and {u['why']}")
+    n = inp["points"].shape[-2]
+    masks = inp["point_masks"].reshape(-1, n)
+    if inp.get("cloud_rows") is not None:
+        masks = masks[inp["cloud_rows"].long()]
+    valid = masks.sum(dim=1).cpu().numpy().astype(np.int64)
+    runs = its.cpu().numpy().astype(np.int64)
+    r = {"phase": "kernel", "name": "lm_match_2d", "case": name,
+         "grid": list(inp["cost_grids"].shape), "k": k, "n": n,
+         "max_iterations": inp["max_iterations"],
+         "nonmonotonic": bool(inp["use_nonmonotonic_steps"]),
+         "iterations_run_mean": float(runs.mean()), **compared}
+    timings(r, lambda: lm.launch(**inp), lambda: lm_plain(inp))
+    r["sectors"] = lm_path_sectors(inp, rows)
+    others = sum(x.numel() * x.element_size() for key, x in inp.items()
+                 if isinstance(x, torch.Tensor) and key != "cost_grids")
+    bound(r, r["sectors"] * 32 + others + k * 16,
+          int(np.sum(valid * (runs + 1))) * LM_OPS_PER_POINT)
+    emit(r)
+    return r
+
+
+def insert_inputs(rng, device, b, h, w, n, reach, edge=False):
+    """testing/kernel_cases_2d.insert_case's arrays as tensors on
+    `device`."""
+    import torch
+
+    from cartographer_tpu_torch.testing import kernel_cases_2d as cases
+
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in cases.insert_case(rng, b, h, w, n, reach, edge)]
+
+
+def insertion_case(name, kind, args):
+    """A supercover kernel against its plain version: both outputs equal
+    bit for bit, two launches equal; times, and the bound from the grids
+    read and written once (5 B a cell each way) and the rays."""
+    import torch
+
+    from cartographer_tpu_torch.kernels import supercover_2d as sc
+    from cartographer_tpu_torch.ops import raycast_2d
+
+    kernel = sc.insert_scan_dense if kind == "dense" else sc.insert_scan
+    plain = (raycast_2d.insert_scan_dense_plain if kind == "dense"
+             else raycast_2d.insert_scan_plain)
+    got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    for g, a, p, what in zip(got, again, want, ("log_odds", "known")):
+        if not torch.equal(g, p):
+            diff = int((g != p).sum())
+            raise AssertionError(f"{kind} {name}: {what} differs from the plain version in {diff} cells")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{kind} {name}: a second launch gave another {what}")
+    lo, _, _, ends, is_hit = args[:5]
+    cells, n = lo.numel(), is_hit.shape[0]
+    r = {"phase": "kernel", "name": f"supercover_{kind}_2d", "case": name,
+         "grid": list(lo.shape), "rays": n, "max_abs_err": 0.0,
+         "bit_identical": True,
+         "touched": int((want[1] & ~args[1]).sum()) + int(((want[0] != lo) & args[1]).sum())}
+    timings(r, lambda: kernel(*args), lambda: plain(*args))
+    nbytes = cells * 5 * 2 + ends.numel() * 4 + 2 * n + args[2].numel() * 4
+    if kind == "dense":
+        rows = (lo.shape[0] if lo.dim() == 3 else 1) * n * lo.shape[-2]
+        ops = rows * DENSE_OPS_PER_ROW
+        r["free_space"] = bool(args[8])
+    else:
+        r["num_steps"] = args[8]
+        ops = n * args[8] * SCATTER_OPS_PER_STEP
+    bound(r, nbytes, ops)
+    emit(r)
+    return r
+
+
+def kernel_phase_2d(device):
+    """lm_match_2d and both supercover insertions against their plain
+    versions on the card, at the main path's shapes and at edge shapes."""
+    from cartographer_tpu_torch.kernels import lm_match_2d
+    from cartographer_tpu_torch.testing import kernel_cases_2d as cases
+
+    rng = np.random.default_rng(1)
+    frontend = (1.0, 10.0, 40.0)  # the 2D frontend's CeresScanMatcherOptions2D
+    refine = (20.0, 10.0, 1.0)  # the constraint builder's
+    lm = {
+        # The chunked frontend's solve: one 1024^2 grid, 512 points, 20
+        # iterations, monotonic.
+        "main": lm_inputs(cases.lm_case(rng, 1, 1024, 1024, 1, 512), device,
+                          frontend, 20, False),
+        # A loop-closure drain: 69 lanes (the mean of a refine study's
+        # drains: 2,070 lanes over 30 rounds) on 8 submaps,
+        # nonmonotonic, 10 iterations.
+        "refine": lm_inputs(cases.lm_case(rng, 8, 1024, 1024, 69, 512), device,
+                            refine, 10, True),
+        # A masked lane, a lane off the grid, N not a multiple of 32,
+        # lanes sharing grids.
+        "edge": lm_inputs(cases.lm_case(rng, 2, 96, 300, 5, 37, edge=True), device,
+                          refine, 10, True),
+    }
+    out = {"lm_match_2d": {name: lm_case(name, inp) for name, inp in lm.items()}}
+    per_lane = ("origins", "initial_poses", "target_translations", "points",
+                "point_masks", "grid_index", "resolutions")
+    empty = {k: v[:0] if k in per_lane else v for k, v in lm["edge"].items()}
+    if lm_match_2d.launch(**empty).shape != (0, 4):
+        raise AssertionError("lm_match_2d: K = 0 did not give [0, 4]")
+
+    def dense(name, b, h, w, n, reach, free=True, edge=False):
+        args = insert_inputs(rng, device, b, h, w, n, reach, edge)
+        if b == 1:
+            args = [args[0][0], args[1][0], args[2][0], args[3][0], *args[4:]]
+        return insertion_case(name, "dense", [*args, HIT_LOG_ODDS, MISS_LOG_ODDS, free])
+
+    def scatter(name, h, w, n, reach, steps, free=True, edge=False):
+        args = insert_inputs(rng, device, 1, h, w, n, reach, edge)
+        args = [args[0][0], args[1][0], args[2][0], args[3][0], *args[4:]]
+        return insertion_case(
+            name, "scatter", [*args, HIT_LOG_ODDS, MISS_LOG_ODDS, steps, free])
+
+    out["supercover_dense_2d"] = {
+        # The chunked frontend: two 1024^2 slots, 1,024 rays of up to 12 m.
+        "main": dense("main", 2, 1024, 1024, 1024, 240.0),
+        "edge_b1": dense("edge_b1", 1, 64, 300, 400, 400.0, edge=True),
+        "edge_b2": dense("edge_b2", 2, 64, 300, 400, 400.0, edge=True),
+        "edge_no_free_space": dense("edge_no_free_space", 2, 64, 300, 400, 400.0,
+                                    free=False, edge=True),
+    }
+    out["supercover_scatter_2d"] = {
+        # The per-scan builder, per submap: 1024^2, 1,024 rays, 256 steps.
+        "main": scatter("main", 1024, 1024, 1024, 240.0, 256),
+        "edge": scatter("edge", 64, 300, 400, 400.0, 512, edge=True),
+        "edge_no_free_space": scatter("edge_no_free_space", 64, 300, 400, 400.0, 512,
+                                      free=False, edge=True),
+    }
+    return out
+
+
 def loop_world_options():
     from cartographer_tpu_torch.common.config import (
         GridOptions2D,
@@ -535,31 +940,58 @@ def profiled(builder, warm_events, events, scans):
 
 
 @contextlib.contextmanager
-def window_sums_inputs(index):
-    """Within the block, the window-sum kernel's wrapper keeps a copy of
-    the inputs of its `index`-th call (from 0) in the list it yields."""
+def kernel_inputs(module, name, keep):
+    """Within the block, `module.name` keeps a copy (tensors cloned) of the
+    arguments of the call for which keep(args, kwargs) is largest (None or
+    False: not a candidate; the first of equals wins), as (args, kwargs),
+    in the list it yields. Raises after the block if no call was kept."""
     import torch
 
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    launch = getattr(module, name)
+    kept, best, calls = [], [None], [0]
 
-    launch = cw.window_sums
-    calls = [0]
-    kept = []
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
 
-    def recording(*args):
-        if calls[0] == index:
-            kept.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
-                              for x in args))
+    def recording(*args, **kwargs):
+        value = keep(args, kwargs)
+        if value is not None and value is not False and (best[0] is None or value > best[0]):
+            best[0] = value
+            kept[:] = [(tuple(map(clone, args)), {k: clone(v) for k, v in kwargs.items()})]
         calls[0] += 1
-        return launch(*args)
+        return launch(*args, **kwargs)
 
-    cw.window_sums = recording
+    setattr(module, name, recording)
     try:
         yield kept
     finally:
-        cw.window_sums = launch
+        setattr(module, name, launch)
     if not kept:
-        raise AssertionError(f"only {calls[0]} window_sums calls")
+        raise AssertionError(f"none of {calls[0]} {name} calls was kept")
+
+
+def nth_call(index):
+    """A `keep` for kernel_inputs: the index-th call (from 0)."""
+    count = [-1]
+
+    def keep(args, kwargs):
+        count[0] += 1
+        return count[0] == index
+
+    return keep
+
+
+def window_sums_inputs(index):
+    """kernel_inputs of the window-sum kernel's `index`-th call."""
+    from cartographer_tpu_torch.kernels import correlative_window as cw
+
+    return kernel_inputs(cw, "window_sums", nth_call(index))
+
+
+def lm_call_inputs(kept):
+    """A kept lm_match_2d.launch call as its arguments by name."""
+    args, kwargs = kept[0]
+    return {**dict(zip(LM_LAUNCH_ARGS, args)), **kwargs}
 
 
 # The slice's world: a quarter lap of the loop world, 300 scans of 1024
@@ -598,7 +1030,8 @@ def max_position_error(results, true_poses, time_step, limit=0.3):
 def slice_phase(device, smi):
     import torch
 
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, lm_match_2d, reset_launch_counts
+    from cartographer_tpu_torch.kernels import supercover_2d
     from cartographer_tpu_torch.testing.synthetic import generate_loop_world
 
     time_step, chunk = SLICE_WORLD["time_step"], 32
@@ -615,8 +1048,13 @@ def slice_phase(device, smi):
     )
     results = []
     t_first = None  # end of the first chunk (CUDA and allocator warm-up)
-    with window_sums_inputs(2 * chunk) as kept:
-        cw.LAUNCHES = 0
+    # The inputs of each kernel's first call in the third chunk.
+    with window_sums_inputs(2 * chunk) as kept, kernel_inputs(
+        lm_match_2d, "launch", nth_call(2 * chunk)
+    ) as kept_lm, kernel_inputs(
+        supercover_2d, "insert_scan_dense", nth_call(2 * chunk)
+    ) as kept_dense:
+        reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for m in measurements:
@@ -628,15 +1066,13 @@ def slice_phase(device, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steady_wall = time.perf_counter() - t_first
-        launches = cw.LAUNCHES
+        launches = launch_counts()
 
     if not results:
         raise AssertionError("no scan was matched")
-    if launches < len(results):
-        raise AssertionError(
-            f"correlative_window launched {launches} times for "
-            f"{len(results)} matched scans"
-        )
+    for name in ("correlative_window", "lm_match_2d", "supercover_dense_2d"):
+        require_launches(launches, name, len(results), "matched scans")
+    require_launches(launches, "supercover_scatter_2d", 0, "", exactly=True)
     # (b) Local-SLAM error against ground truth, relative to the first node.
     max_err = max_position_error(results, true_poses, time_step)
 
@@ -644,7 +1080,8 @@ def slice_phase(device, smi):
     # GPU's state before it and the same packed input.
     step = per_scan_parity(range_events(measurements[: 2 * chunk]))
     profile = profile_phase(measurements[: 2 * chunk], chunk)
-    real_args = kept[0]
+    real = {"correlative_window": kept[0][0], "lm_match_2d": lm_call_inputs(kept_lm),
+            "supercover_dense_2d": list(kept_dense[0][0])}
 
     r = {
         "phase": "slice",
@@ -657,14 +1094,14 @@ def slice_phase(device, smi):
         "real_time_ratio": num_scans * time_step / wall,
         "steady_scans_per_s": (num_scans - chunk) / steady_wall,
         "steady_real_time_ratio": (num_scans - chunk) * time_step / steady_wall,
-        "launches": {"correlative_window": launches},
+        "launches": launches,
         "max_position_error_m": max_err,
         **step,
         "profile": profile,
         "card": smi,
     }
     emit(r)
-    return r, real_args
+    return r, real
 
 
 # The backend phase's world: half a lap of bench.py's scaled world (a
@@ -820,14 +1257,11 @@ def lm_stop_explained(card, cpu, card_found, cpu_found, lane, card_zbar, cpu_zba
     is accepted only as one LM run that branched at one accept test: the
     two BnB results are the same pose; re-running the drain's refinement
     with 0, 1, ..., max iterations ends on each device at its own refined
-    pose (1e-3 m / 1e-3 rad); and at the first iteration count where the
-    two devices' iterates part by more than 1e-3, exactly one of them
-    stayed where it was (its step was rejected or its lane had stopped)
-    while the other moved. Up to there both ran the same iterates; after
-    it the damping and the nonmonotonic reference differ, and an LM that
+    pose (1e-3 m / 1e-3 rad); and the two devices' iterates part as
+    `branched_at` requires at 1e-3, one device staying put. An LM that
     has not settled (it cycles or wanders: see each side's cost beside
-    the least it reached) ends elsewhere. Returns the lane's stats, or
-    raises."""
+    the least it reached) then ends elsewhere. Returns the lane's stats,
+    or raises."""
     (search, g), (_, c) = [
         [(s, r) for s, r in found if r is not None][lane] for found in (card_found, cpu_found)
     ]
@@ -841,54 +1275,138 @@ def lm_stop_explained(card, cpu, card_found, cpu_found, lane, card_zbar, cpu_zba
     for name, its, z in (("card", on_card, card_zbar), ("CPU", on_cpu, cpu_zbar)):
         if max(_pose_diff(its[-1], z)) > 1e-3:
             raise AssertionError(f"{where}: the {name}'s re-run ends at {its[-1]}, not {z}")
-    apart = [k for k in range(len(on_card)) if max(_pose_diff(on_card[k], on_cpu[k])) > 1e-3]
-    if not apart:
-        raise AssertionError(f"{where}: the iterates agree, the refined poses do not")
-    k = apart[0]
-    stayed = [bool(np.array_equal(its[k, :3], its[k - 1, :3])) for its in (on_card, on_cpu)]
-    if stayed[0] == stayed[1]:
-        raise AssertionError(
-            f"{where}: at LM iteration {k} the devices part by "
-            f"{_pose_diff(on_card[k], on_cpu[k])} with "
-            f"{'both' if stayed[0] else 'neither'} staying put"
-        )
+    try:
+        k, side = branched_at(on_card, on_cpu, 1e-3)
+    except AssertionError as e:
+        raise AssertionError(f"{where}: {e}") from None
     m, rad = _pose_diff(card_zbar, cpu_zbar)
     return {
         "m": m, "rad": rad, "iteration_apart": k,
-        "stayed": "card" if stayed[0] else "cpu",
+        "stayed": ("card", "cpu")[side],
         "cost_card": float(on_card[-1, 3]), "least_cost_card": float(np.min(on_card[:, 3])),
         "cost_cpu": float(on_cpu[-1, 3]), "least_cost_cpu": float(np.min(on_cpu[:, 3])),
     }
 
 
-def drain_checks(drain, source, options, resolution, device):
+@contextlib.contextmanager
+def bnb_passes():
+    """Within the block, every lane chunk that the device BnB searches
+    (fast_correlative_2d._bnb_lanes) as (its _Search, best (angle, x, y)
+    [K, 3]), in the list it yields."""
+    from cartographer_tpu_torch.ops.scan_matching import fast_correlative_2d as fc
+
+    bnb, seen = fc._bnb_lanes, []
+
+    def recording(lanes, *args):
+        got = bnb(lanes, *args)
+        seen.append((lanes, got[1]))
+        return got
+
+    fc._bnb_lanes = recording
+    try:
+        yield seen
+    finally:
+        fc._bnb_lanes = bnb
+
+
+def scan_cells_survey(card_passes, cpu_passes):
+    """The discretized scans (_Search.ix, iy) of the same lane chunks on
+    the card and the CPU: valid (angle, point) cells in all, cells that
+    differ between the devices, and those of them at each lane's best
+    angle on the card (where they change the winning score; lanes that
+    found a candidate). Chunks are
+    paired in order while their shapes agree."""
+    import torch
+
+    out = {"cells": 0, "differ": 0, "differ_at_best_angle": 0, "lanes_with_differ_at_best": 0}
+    for (card, best), (cpu, _) in zip(card_passes, cpu_passes):
+        if card.ix.shape != cpu.ix.shape:
+            break
+        mask = cpu.pmask[:, None, :]
+        differ = ((card.ix.cpu() != cpu.ix) | (card.iy.cpu() != cpu.iy)) & mask
+        angle = best[:, 0].long().cpu()  # -1: no candidate passed the score gate
+        at_best = differ[torch.arange(len(best)), angle.clamp(min=0)] & (angle >= 0)[:, None]
+        out["cells"] += int(mask.sum()) * differ.shape[1]
+        out["differ"] += int(differ.sum())
+        out["differ_at_best_angle"] += int(at_best.sum())
+        out["lanes_with_differ_at_best"] += int(at_best.any(dim=1).sum())
+    return out
+
+
+def bnb_mismatch(card, cpu, search):
+    """Why the device BnB's best score for `search` differs between the
+    card's constraint builder `card` and the CPU's `cpu`: which pyramid
+    levels differ, each side's best candidate (angle, x, y), how many
+    (angle, point) cells of the discretized scan differ between the
+    devices (in all, and at each best's angle), and both bests' integer
+    level-0 sums on either side's discretization (equal sums of two
+    candidates: a tie)."""
+    import torch
+
+    pyramids = [b._matcher(search.submap_id)._pyramid.cpu() for b in (card, cpu)]
+    out = {"search": f"{search.submap_id}/{search.node_id}",
+           "pyramid_levels_differ": [
+               lvl for lvl in range(pyramids[0].shape[0])
+               if not torch.equal(pyramids[0][lvl], pyramids[1][lvl])]}
+    runs = {}
+    for side, b in (("card", card), ("cpu", cpu)):
+        with bnb_passes() as seen:
+            b._run_searches_device([search])
+        lanes, best = seen[-1]  # the widest pass
+        runs[side] = lanes, best[0].cpu()
+        out[side] = {"best_angle_x_y": best[0].tolist()}
+    (s_card, _), (s_cpu, _) = runs["card"], runs["cpu"]
+    mask = s_cpu.pmask[0]
+    differ = ((s_card.ix[0].cpu() != s_cpu.ix[0]) | (s_card.iy[0].cpu() != s_cpu.iy[0])) & mask
+    out["scan_cells_differ"] = int(differ.sum())
+    out["scan_cells"] = int(mask.sum()) * differ.shape[0]
+    for side, (_, best) in runs.items():
+        out[side]["scan_cells_differ_at_its_angle"] = int(differ[max(int(best[0]), 0)].sum())
+        for name, (lanes, _) in runs.items():
+            if best[0] < 0:  # no candidate passed the score gate
+                continue
+            a, x, y = (best[i].reshape(1, 1).to(lanes.ix.device) for i in range(3))
+            sums, _ = lanes.score(0, a.long(), x, y, torch.ones_like(a, dtype=torch.bool))
+            out[side][f"level0_sum_on_{name}"] = int(sums[0, 0])
+    return out
+
+
+def drain_checks(drain, source, options, resolution, device, survey=None):
     """One drain's searches again: through the CPU port (the same found
     set, BnB scores within 1e-5, refined poses within 1e-3 m / 1e-3 rad
     of the card's drain, or else one LM run that branched at one accept
     test: `lm_stop_explained`), and through the native backend (poses
-    within one cell and 0.01 rad of the device search)."""
+    within one cell and 0.01 rad of the device search). With a dict
+    `survey`, scan_cells_survey's counts of the two searches are added
+    to it."""
     searches = drain["searches"]
     card = replay_drain(searches, source, options, "device", device)
-    card_found = card._run_searches_device(searches)
+    with bnb_passes() as card_passes:
+        card_found = card._run_searches_device(searches)
     cpu = replay_drain(searches, source, options, "device", "cpu")
     t0 = time.perf_counter()
     cpu_zbar = _zbar_by_pair(cpu.run_pending())
     cpu_s = time.perf_counter() - t0
-    cpu_found = cpu._run_searches_device(searches)
+    with bnb_passes() as cpu_passes:
+        cpu_found = cpu._run_searches_device(searches)
+    if survey is not None:
+        for key, n in scan_cells_survey(card_passes, cpu_passes).items():
+            survey[key] = survey.get(key, 0) + n
     card_zbar = _zbar_by_pair(drain["constraints"])
     if set(cpu_zbar) != set(card_zbar):
         raise AssertionError(
             f"drain replay: CPU found {len(cpu_zbar)} constraints, the card "
             f"{len(card_zbar)}; they differ in {len(set(cpu_zbar) ^ set(card_zbar))}"
         )
-    score_err = 0.0
-    for (_, g), (_, c) in zip(card_found, cpu_found):
+    score_err, worst = 0.0, None
+    for (s, g), (_, c) in zip(card_found, cpu_found):
         if (g is None) != (c is None):
             raise AssertionError("drain replay: CPU and card BnB found different sets")
-        if g is not None:
-            score_err = max(score_err, abs(g.score - c.score))
+        if g is not None and abs(g.score - c.score) > score_err:
+            score_err, worst = abs(g.score - c.score), s
     if score_err > 1e-5:
-        raise AssertionError(f"drain replay: BnB scores differ by {score_err:.2e}")
+        raise AssertionError(f"drain replay: BnB scores differ by {score_err:.2e}: "
+                             + json.dumps(bnb_mismatch(card, cpu, worst)))
     pose_m = pose_rad = 0.0
     lanes = [(s.submap_id, s.node_id) for s, g in card_found if g is not None]
     unsettled = []
@@ -975,6 +1493,11 @@ def spa_check(solve, call):
     }
 
 
+def refine_lanes(args, kwargs):
+    """A `keep` for kernel_inputs: a drain refinement's lane count."""
+    return args[2].shape[0] if kwargs.get("cloud_rows") is not None else None
+
+
 def backend_phase(device, smi):
     """MapBuilder on `device` over BACKEND_WORLD: the frontend, the pose
     graph with asynchronous drains, loop closure through the device BnB and
@@ -984,7 +1507,7 @@ def backend_phase(device, smi):
     for the persist phase."""
     from cartographer_tpu_torch import metrics
     from cartographer_tpu_torch.evaluation.trajectory_metrics import aligned_ate
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, lm_match_2d, reset_launch_counts
     from cartographer_tpu_torch.mapping import optimization_problem_2d as op2d
     from cartographer_tpu_torch.mapping.id import SubmapId
     from cartographer_tpu_torch.mapping.map_builder import MapBuilder
@@ -1026,23 +1549,25 @@ def backend_phase(device, smi):
     try:
         tid = mb.add_trajectory_builder({"range"}, traj_options)
         builder = mb.get_trajectory_builder(tid)
-        sync(device)
-        cw.LAUNCHES = 0
-        t0 = time.perf_counter()
-        for m in measurements:
-            builder.add_sensor_data("range", m)
-        sync(device)
-        feed_end[0] = time.perf_counter()
-        feed_s = feed_end[0] - t0
-        t0 = time.perf_counter()
-        mb.finish_trajectory(tid)
-        sync(device)
-        catch_up_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pg.run_final_optimization()
-        sync(device)
-        final_s = time.perf_counter() - t0
-        launches = cw.LAUNCHES
+        # The inputs of the drain refinement with the most lanes.
+        with kernel_inputs(lm_match_2d, "launch", refine_lanes) as kept_refine:
+            sync(device)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for m in measurements:
+                builder.add_sensor_data("range", m)
+            sync(device)
+            feed_end[0] = time.perf_counter()
+            feed_s = feed_end[0] - t0
+            t0 = time.perf_counter()
+            mb.finish_trajectory(tid)
+            sync(device)
+            catch_up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pg.run_final_optimization()
+            sync(device)
+            final_s = time.perf_counter() - t0
+            launches = launch_counts()
         mb.shutdown()
         # The map as it stands, for the persist phase (no scan is fed
         # again there).
@@ -1070,8 +1595,8 @@ def backend_phase(device, smi):
         raise AssertionError("no INTER_SUBMAP constraint")
     if searched <= 0:
         raise AssertionError("no device BnB search")
-    if launches <= 0:
-        raise AssertionError("correlative_window was not launched in the backend phase")
+    for name in ("correlative_window", "lm_match_2d", "supercover_dense_2d"):
+        require_launches(launches, name, len(errs_all), "nodes")
     if errs.max() > 0.3:
         raise AssertionError(
             f"max node error {errs.max():.3f} m > 0.3 m (relative to node {STARTUP_NODES})"
@@ -1124,7 +1649,7 @@ def backend_phase(device, smi):
         "feed_scans_per_s": len(measurements) / feed_s,
         "catch_up_s": catch_up_s,
         "final_optimization_s": final_s,
-        "launches": {"correlative_window": launches},
+        "launches": launches,
         **replay,
         **spa,
         "state_mb": len(state) / 1e6,
@@ -1133,10 +1658,53 @@ def backend_phase(device, smi):
     }
     emit(r)
     saved = dict(map_builder=mb, state=state, serialize_s=serialize_s,
+                 refine_inputs=lm_call_inputs(kept_refine),
                  measurements=measurements, true_poses=true_poses, drains=drains,
                  constraint_builder=cb, resolution=resolution,
                  constraint_options=mb_options.pose_graph.constraint_builder)
     return r, saved
+
+
+def lm_three_ways(inp, totals, round_):
+    """One drain refinement's lanes held at LM_TOL three ways by
+    lm_lanes_compare: the kernel against the plain version on the card
+    (kernel_2d's real_refine check), the kernel against the plain version
+    on the CPU, and the plain version on the card against it on the CPU.
+    Adds to `totals` per way: lanes, the worst within LM_TOL (m), the
+    worst relative cost error of any lane, lanes beyond LM_TOL, branched
+    lanes, and the unexplained ones (with `round_`, and for the first way
+    the plain versions' own difference on that lane)."""
+    import torch
+
+    from cartographer_tpu_torch.kernels import lm_match_2d as lm
+
+    on_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in inp.items()}
+    kernel, plain_card, plain_cpu = lm.launch(**inp), lm_plain(inp), lm_plain(on_cpu)
+    its = inp["max_iterations"]
+    ways = {
+        "kernel_vs_plain_card": lm_lanes_compare(inp, kernel, plain_card),
+        "kernel_vs_plain_cpu": lm_lanes_compare(inp, kernel, plain_cpu, plain_inp=on_cpu),
+        "plain_card_vs_plain_cpu": lm_lanes_compare(
+            inp, plain_card, plain_cpu, plain_inp=on_cpu, got_iterates=lambda: torch.stack(
+                [lm_plain(inp, i) for i in range(its + 1)])),
+    }
+    # The plain version against itself across the devices on each lane
+    # that the kernel's comparison on the card leaves unexplained.
+    pc, pu = (x.cpu().numpy().astype(np.float64) for x in (plain_card, plain_cpu))
+    for u in ways["kernel_vs_plain_card"]["unexplained"]:
+        a, b = pc[u["lane"]], pu[u["lane"]]
+        u["plain_card_vs_cpu"] = {"m": max(_pose_diff(a, b)),
+                                  "cost_rel": abs(a[3] - b[3]) / max(abs(b[3]), 1e-6)}
+    for way, c in ways.items():
+        t = totals.setdefault(way, {"lanes": 0, "max_m_within_tol": 0.0,
+                                    "max_cost_rel_all": 0.0, "beyond_tol": 0,
+                                    "branched": 0, "unexplained": []})
+        t["lanes"] += len(kernel)
+        t["max_m_within_tol"] = max(t["max_m_within_tol"], c["max_m"])
+        t["max_cost_rel_all"] = max(t["max_cost_rel_all"], c["max_cost_rel_err_all"])
+        t["beyond_tol"] += c["lanes_beyond_tol"]
+        t["branched"] += c["branched_lanes"]
+        t["unexplained"] += [dict(u, round=round_) for u in c["unexplained"]]
 
 
 def refine_study(device, saved, seconds, seed=1):
@@ -1144,9 +1712,14 @@ def refine_study(device, saved, seconds, seed=1):
     searches, each search's initial pose moved by up to 1 m and 0.2 rad
     (seeded), the card's own drain of them standing for the run's: how
     many refined lanes the card and the CPU put within 1e-3 of each
-    other, and each lane that only `lm_stop_explained` accepts. A round
-    that fails is recorded, not raised."""
+    other, and each lane that only `lm_stop_explained` accepts (a BnB
+    score mismatch carries bnb_mismatch's diagnosis, and every round adds
+    scan_cells_survey's counts); and each round's drain refinement held
+    three ways at LM_TOL (lm_three_ways). A round that fails is recorded,
+    not raised."""
     import dataclasses
+
+    from cartographer_tpu_torch.kernels import lm_match_2d
 
     cb, options = saved["constraint_builder"], saved["constraint_options"]
     searches = [s for d in saved["drains"] for s in d["searches"]
@@ -1154,7 +1727,7 @@ def refine_study(device, saved, seconds, seed=1):
     rng = np.random.default_rng(seed)
     out = {"phase": "refine_study", "seed": seed, "searches_per_round": len(searches),
            "rounds": 0, "lanes": 0, "max_m_within_bound": 0.0, "unsettled": [],
-           "failed": []}
+           "failed": [], "lm_at_tol": {}, "scan_cells": {}}
     t_end = time.perf_counter() + seconds
     while time.perf_counter() < t_end:
         moved = []
@@ -1163,10 +1736,13 @@ def refine_study(device, saved, seconds, seed=1):
             p[:2] += rng.uniform(-1.0, 1.0, 2)
             p[2] += rng.uniform(-0.2, 0.2)
             moved.append(dataclasses.replace(s, initial_relative_pose=p))
-        card = replay_drain(moved, cb, options, "device", device)
-        drain = {"searches": moved, "constraints": card.run_pending()}
         try:
-            res = drain_checks(drain, cb, options, saved["resolution"], device)
+            with kernel_inputs(lm_match_2d, "launch", refine_lanes) as kept:
+                card = replay_drain(moved, cb, options, "device", device)
+                drain = {"searches": moved, "constraints": card.run_pending()}
+            lm_three_ways(lm_call_inputs(kept), out["lm_at_tol"], out["rounds"])
+            res = drain_checks(drain, cb, options, saved["resolution"], device,
+                               survey=out["scan_cells"])
             out["lanes"] += res["replay_found"]
             out["max_m_within_bound"] = max(out["max_m_within_bound"],
                                             res["replay_cpu_max_m"])
@@ -1282,30 +1858,42 @@ def per_scan_builder_parity(events, options, num_scans=8):
             f"per-scan GPU/CPU poses differ by {worst_m:.2e} m, {worst_rad:.2e} rad"
         )
     return {"cpu_parity_scans": compared, "cpu_parity_max_m": worst_m,
-            "cpu_parity_max_rad": worst_rad}, kept[0]
+            "cpu_parity_max_rad": worst_rad}, kept[0][0]
 
 
-def require_launches(launches: int, needed: int, what: str) -> None:
-    """The CUDA kernel ran at least once per case."""
-    if launches < needed:
+def require_launches(launches, name: str, needed: int, what: str,
+                     exactly: bool = False) -> None:
+    """Kernel `name` ran at least `needed` times (exactly, with `exactly`)
+    in a path's run; `launches` is that run's kernels.launch_counts()."""
+    got = launches[name]
+    if got < needed or (exactly and got != needed):
         raise AssertionError(
-            f"correlative_window launched {launches} times for {needed} {what}"
+            f"{name} launched {got} times for {needed} {what}".rstrip()
         )
+
+
+NEW_2D_KERNELS = ("lm_match_2d", "supercover_dense_2d", "supercover_scatter_2d")
+
+
+def require_none(launches, names, what: str) -> None:
+    """None of the kernels `names` ran on a path that must not use them."""
+    for name in names:
+        require_launches(launches, name, 0, f"({what} launches none)", exactly=True)
 
 
 def timed_run(make_builder, events, num_scans, time_step, true_poses, device):
     """Feed `events` to a fresh builder with the launch count set to 0:
     scans/s, real-time ratio, error against ground truth, launches."""
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     builder = make_builder()
     sync(device)
-    cw.LAUNCHES = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     results = feed(builder, events)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = cw.LAUNCHES
+    launches = launch_counts()
     if not results:
         raise AssertionError("no scan was matched")
     return results, {
@@ -1316,7 +1904,7 @@ def timed_run(make_builder, events, num_scans, time_step, true_poses, device):
         "scans_per_s": num_scans / wall,
         "real_time_ratio": num_scans * time_step / wall,
         "max_position_error_m": max_position_error(results, true_poses, time_step),
-        "launches": {"correlative_window": launches},
+        "launches": launches,
     }
 
 
@@ -1330,13 +1918,30 @@ def per_scan_part(events, true_poses, options, num_scans, time_step, device):
         LocalTrajectoryBuilder2D,
     )
 
+    from cartographer_tpu_torch.kernels import supercover_2d
+
     head = first_scans(events, num_scans)
-    results, r = timed_run(
-        lambda: LocalTrajectoryBuilder2D(options, {"range"}, device=device),
-        head, num_scans, time_step, true_poses, device,
-    )
-    require_launches(r["launches"]["correlative_window"], len(results) - 1,
+    tsdf = options.submaps.grid_options_2d.grid_type == "TSDF"
+    # A probability grid's 11th insertion (a submap some scans old) is
+    # the scatter kernel's "real" case.
+    recording = contextlib.nullcontext([None]) if tsdf else kernel_inputs(
+        supercover_2d, "insert_scan", nth_call(10))
+    with recording as kept_scatter:
+        results, r = timed_run(
+            lambda: LocalTrajectoryBuilder2D(options, {"range"}, device=device),
+            head, num_scans, time_step, true_poses, device,
+        )
+    launches = r["launches"]
+    require_launches(launches, "correlative_window", len(results) - 1,
                      "matched scans with a submap")
+    if tsdf:  # match_tsdf and insert_scan_tsdf stay plain PyTorch
+        require_none(launches, NEW_2D_KERNELS, "the TSDF path")
+    else:
+        require_launches(launches, "lm_match_2d", len(results) - 1,
+                         "matched scans with a submap")
+        require_launches(launches, "supercover_scatter_2d", r["inserted"], "insertions")
+        require_none(launches, ["supercover_dense_2d"], "the per-scan path")
+    r["scatter_inputs"] = None if tsdf else list(kept_scatter[0][0])
     parity, window_sums_args = per_scan_builder_parity(events, options)
     r.update(parity)
     # Scans 11-20 of a fresh run under the profiler.
@@ -1357,7 +1962,7 @@ def map_builder_part(events, num_scans, time_step, device):
         PureLocalizationTrimmerOptions,
         TrajectoryBuilderOptions,
     )
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
     from cartographer_tpu_torch.mapping.local_trajectory_builder_2d import (
         LocalTrajectoryBuilder2D,
@@ -1376,7 +1981,7 @@ def map_builder_part(events, num_scans, time_step, device):
     if not isinstance(builder._wrapped._local_trajectory_builder, LocalTrajectoryBuilder2D):
         raise AssertionError("the default options did not route to the per-scan builder")
     sync(device)
-    cw.LAUNCHES = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     for kind, _, payload in first_scans(events, num_scans):
         builder.add_sensor_data(kind, payload)
@@ -1384,7 +1989,7 @@ def map_builder_part(events, num_scans, time_step, device):
     mb.pose_graph.run_final_optimization()
     sync(device)
     wall = time.perf_counter() - t0
-    launches = cw.LAUNCHES
+    launches = launch_counts()
     mb.shutdown()
     pg = mb.pose_graph
     left = [sid.submap_index for sid, _ in pg.get_all_submap_data().items(SubmapId)
@@ -1398,6 +2003,11 @@ def map_builder_part(events, num_scans, time_step, device):
     created = max(left) + 1
     if created - len(left) < 1:
         raise AssertionError("the pure-localization trimmer removed no submap")
+    # Every node but the first was matched, and every node inserted; the
+    # default options match without the online correlative search.
+    require_launches(launches, "lm_match_2d", len(nodes) - 1, "nodes")
+    require_launches(launches, "supercover_scatter_2d", len(nodes), "nodes")
+    require_none(launches, ["supercover_dense_2d"], "the per-scan path")
     return {
         "scans": num_scans,
         "nodes": len(nodes),
@@ -1407,7 +2017,7 @@ def map_builder_part(events, num_scans, time_step, device):
         "wall_s": wall,
         "scans_per_s": num_scans / wall,
         "real_time_ratio": num_scans * time_step / wall,
-        "launches": {"correlative_window": launches},
+        "launches": launches,
     }
 
 
@@ -1432,8 +2042,9 @@ def sensors_phase(device, smi):
             sensor_options(), {"range"}, chunk_size=chunk, device=device),
         first_scans(events, n["chunked"]), n["chunked"], time_step, true_poses, device,
     )
-    require_launches(chunked["launches"]["correlative_window"], len(results),
-                     "matched scans")
+    for name in ("correlative_window", "lm_match_2d", "supercover_dense_2d"):
+        require_launches(chunked["launches"], name, len(results), "matched scans")
+    require_none(chunked["launches"], ["supercover_scatter_2d"], "the chunked path")
     chunked["chunk"] = chunk
     chunked.update(per_scan_parity(first_scans(events, 2 * chunk), sensor_options()))
 
@@ -1442,6 +2053,8 @@ def sensors_phase(device, smi):
     tsdf, tsdf_args = per_scan_part(
         events, true_poses, sensor_options("TSDF"), n["per_scan_tsdf"], time_step, device)
     map_builder = map_builder_part(events, n["map_builder"], time_step, device)
+    scatter_args = per_scan.pop("scatter_inputs")
+    tsdf.pop("scatter_inputs")
     r = {
         "phase": "sensors",
         "imu_hz": 100, "odometry_hz": 50,
@@ -1453,7 +2066,8 @@ def sensors_phase(device, smi):
         "card": smi,
     }
     emit(r)
-    return r, {"per_scan": per_scan_args, "per_scan_tsdf": tsdf_args}
+    return r, {"per_scan": per_scan_args, "per_scan_tsdf": tsdf_args,
+               "scatter_per_scan": scatter_args}
 
 
 # -- local_slam_3d: the 3D frontends at the JAX package's 3D bench setting
@@ -1571,21 +2185,21 @@ def per_scan_3d_parity(events, options, num_scans=8, device="cuda"):
 def run_3d_path(make_builder, events, num_scans, true_position, device):
     """Feed `events` to a fresh builder with the launch count and the
     dropped-write counter set to 0: scans/s, real-time ratio at 10 Hz,
-    final and max position error, dropped grid writes, window-sum
-    launches (none: the 3D paths do not use the 2D kernel)."""
+    final and max position error, dropped grid writes, kernel launches
+    (none: the 3D paths use no 2D kernel)."""
     from cartographer_tpu_torch import metrics
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     builder = make_builder()
     collected = metrics.enable_collection()
     try:
         sync(device)
-        cw.LAUNCHES = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         results = feed(builder, events)
         sync(device)
         wall = time.perf_counter() - t0
-        launches = cw.LAUNCHES
+        launches = launch_counts()
         # Dropped writes: counted per chunk by the chunked frontend, and by
         # the per-scan builder's submaps when they finish; the per-scan
         # builder's live paged grids hold the rest.
@@ -1601,8 +2215,7 @@ def run_3d_path(make_builder, events, num_scans, true_position, device):
         metrics.register_family_factory(metrics.FamilyFactory())
     if not results:
         raise AssertionError("no 3D scan was matched")
-    if launches:
-        raise AssertionError(f"the 3D path launched correlative_window {launches} times")
+    require_none(launches, ["correlative_window", *NEW_2D_KERNELS], "a 3D path")
     final_err, max_err = position_errors_3d(results, true_position)
     if dropped:
         raise AssertionError(f"{dropped} grid writes dropped on the 3D path")
@@ -1616,7 +2229,7 @@ def run_3d_path(make_builder, events, num_scans, true_position, device):
         "final_position_error_m": final_err,
         "max_position_error_m": max_err,
         "dropped_writes": dropped,
-        "launches": {"correlative_window": launches},
+        "launches": launches,
     }
 
 
@@ -1732,7 +2345,7 @@ def map_builder_3d_part(device):
     for the persist phase, the map builder with its serialized state
     (timed) and the world's events."""
     from cartographer_tpu_torch import metrics
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
     from cartographer_tpu_torch.mapping.map_builder import MapBuilder
     from cartographer_tpu_torch.mapping.pose_graph_3d import PoseGraph3D
@@ -1770,7 +2383,7 @@ def map_builder_3d_part(device):
         tid = mb.add_trajectory_builder({"range", "imu"}, traj_options)
         builder = mb.get_trajectory_builder(tid)
         sync(device)
-        cw.LAUNCHES = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         for kind, _, payload in events:
             builder.add_sensor_data(kind, payload)
@@ -1785,7 +2398,7 @@ def map_builder_3d_part(device):
         pg.run_final_optimization()
         sync(device)
         final_s = time.perf_counter() - t0
-        launches = cw.LAUNCHES
+        launches = launch_counts()
         mb.shutdown()
         t0 = time.perf_counter()
         state = mb.serialize_state()
@@ -1812,8 +2425,7 @@ def map_builder_3d_part(device):
         raise AssertionError("the 3D constraint builder ran no loop-closure search")
     if len(pg.solve_seconds) < 3:
         raise AssertionError(f"only {len(pg.solve_seconds)} SPA solves")
-    if launches:
-        raise AssertionError(f"the 3D backend launched correlative_window {launches} times")
+    require_none(launches, ["correlative_window", *NEW_2D_KERNELS], "the 3D backend")
     line = {
         "scans": num_scans,
         "nodes": len(nodes),
@@ -1832,7 +2444,7 @@ def map_builder_3d_part(device):
         "final_optimization_s": final_s,
         "max_node_error_m": max(errs),
         "final_node_error_m": errs[-1],
-        "launches": {"correlative_window": launches},
+        "launches": launches,
     }
     saved = dict(map_builder=mb, state=state, serialize_s=serialize_s, events=events)
     return line, pg, solves, saved
@@ -2271,12 +2883,12 @@ def localization_part(loaded, saved, device):
     scans again, LOCALIZATION_SHIFT seconds later; then the final
     optimization. Node error against the truth in the frozen map's frame
     (limit 0.3 m from node STARTUP_NODES), INTER constraints to the frozen
-    trajectory, submaps kept, window-sum launches. Also returns the inputs
+    trajectory, submaps kept, kernel launches. Also returns the inputs
     of the path's first window-sum call."""
     import copy
 
     from cartographer_tpu_torch.common.config import PureLocalizationTrimmerOptions
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
     from cartographer_tpu_torch.testing.synthetic import FAKE_START_TIME
     from cartographer_tpu_torch.transform import rigid3
@@ -2296,7 +2908,7 @@ def localization_part(loaded, saved, device):
         m.time += LOCALIZATION_SHIFT
     with window_sums_inputs(0) as kept:
         sync(device)
-        cw.LAUNCHES = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         for m in measurements:
             builder.add_sensor_data("range", m)
@@ -2307,7 +2919,7 @@ def localization_part(loaded, saved, device):
         pg.run_final_optimization()
         sync(device)
         catch_up_s = time.perf_counter() - t0
-        launches = cw.LAUNCHES
+        launches = launch_counts()
     loaded.shutdown()
 
     def index(node):
@@ -2340,7 +2952,8 @@ def localization_part(loaded, saved, device):
                     if sid.trajectory_id == tid]
     if len(kept_submaps) > 3:
         raise AssertionError(f"{len(kept_submaps)} localization submaps kept, the trimmer keeps 3")
-    require_launches(launches, 1, "localization scans")
+    for name in ("correlative_window", "lm_match_2d", "supercover_dense_2d"):
+        require_launches(launches, name, len(new), "localization nodes")
     return {
         "scans": LOCALIZATION_SCANS,
         "nodes": len(new),
@@ -2353,8 +2966,8 @@ def localization_part(loaded, saved, device):
         "catch_up_s": catch_up_s,
         "max_node_error_m": float(errs[STARTUP_NODES:].max()),
         "max_node_error_all_nodes_m": float(errs.max()),
-        "launches": {"correlative_window": launches},
-    }, kept[0]
+        "launches": launches,
+    }, kept[0][0]
 
 
 def persist_3d_part(saved, device):
@@ -2555,7 +3168,7 @@ def cloud_server_part(events, true_poses, device):
     from cartographer_tpu_torch.cloud.map_builder_server import MapBuilderServer
     from cartographer_tpu_torch.cloud.map_builder_stub import MapBuilderStub
     from cartographer_tpu_torch.common.config import TrajectoryBuilderOptions
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
     from cartographer_tpu_torch.mapping.grid_2d import compute_cropped
     from cartographer_tpu_torch.mapping.id import NodeId, SubmapId
 
@@ -2581,7 +3194,7 @@ def cloud_server_part(events, true_poses, device):
         head = first_scans(events, CLOUD_SCANS)
         with window_sums_inputs(0) as kept:
             sync(device)
-            cw.LAUNCHES = 0
+            reset_launch_counts()
             t_first_write = time.perf_counter()
             stream_events(stub.get_trajectory_builder(tid), head)
             t0 = time.perf_counter()
@@ -2591,8 +3204,9 @@ def cloud_server_part(events, true_poses, device):
             stub.pose_graph.run_final_optimization()
             final_optimization_s = time.perf_counter() - t0
             sync(device)
-            launches = cw.LAUNCHES
-        require_launches(launches, 1, "scans through the server")
+            launches = launch_counts()
+        for name in ("correlative_window", "lm_match_2d", "supercover_scatter_2d"):
+            require_launches(launches, name, 1, "scans through the server")
         t0 = time.perf_counter()
         wire_poses = stub.pose_graph.get_trajectory_node_poses()
         node_poses_s = time.perf_counter() - t0
@@ -2650,8 +3264,8 @@ def cloud_server_part(events, true_poses, device):
             "state_mb": len(state) / 1e6,
             "submap_0_texture": list(texture["intensity"].shape),
             "metrics_pose_graph_optimizations": float(found.group(1)),
-            "launches": {"correlative_window": launches},
-        }, kept[0]
+            "launches": launches,
+        }, kept[0][0]
     finally:
         stub.close()
         server.shutdown()
@@ -2667,7 +3281,7 @@ def cloud_uplink_part(events, device):
     from cartographer_tpu_torch.cloud.map_builder_server import MapBuilderServer
     from cartographer_tpu_torch.cloud.map_builder_stub import MapBuilderStub
     from cartographer_tpu_torch.common.config import TrajectoryBuilderOptions
-    from cartographer_tpu_torch.kernels import correlative_window as cw
+    from cartographer_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     mb_options, _ = backend_options()
     upstream = MapBuilderServer(mb_options, device=device)
@@ -2687,7 +3301,7 @@ def cloud_uplink_part(events, device):
         legs = [first_scans(events, int(n)) for n in ends]
         legs = [legs[0]] + [b[len(a):] for a, b in zip(legs, legs[1:])]
         sync(device)
-        cw.LAUNCHES = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         stream_events(builder, legs[0])
         builder.close_streams()  # every write acknowledged by the robot
@@ -2708,7 +3322,7 @@ def cloud_uplink_part(events, device):
         upstream.wait_until_idle()
         sync(device)
         wall = time.perf_counter() - t0
-        launches = cw.LAUNCHES
+        launches = launch_counts()
         robot_nodes = robot.map_builder.pose_graph.get_trajectory_nodes().size()
         upstream_nodes = upstream.map_builder.pose_graph.get_trajectory_nodes().size()
         if not (drained_before and drained):
@@ -2716,6 +3330,8 @@ def cloud_uplink_part(events, device):
         if robot_nodes <= 10 or upstream_nodes < 1:
             raise AssertionError(
                 f"robot {robot_nodes} nodes, restarted upstream {upstream_nodes}")
+        for name in ("correlative_window", "lm_match_2d", "supercover_scatter_2d"):
+            require_launches(launches, name, robot_nodes - 1, "robot nodes")
         return {
             "scans": int(ends[-1]), "legs": list(UPLINK_LEGS), "batch": 10,
             "robot_nodes": robot_nodes,
@@ -2723,7 +3339,7 @@ def cloud_uplink_part(events, device):
             "upstream_nodes_after_restart": upstream_nodes,
             "uploader_drained": True,
             "wall_s": wall,
-            "launches": {"correlative_window": launches},
+            "launches": launches,
         }
     finally:
         stub.close()
@@ -2870,8 +3486,11 @@ def multigpu_phase(device, smi):
     production drain on those two ranks. Checks: the ranks' costs (rel
     1e-6) and pose digests (abs 1e-6) agree, (b)'s cost is within rel 1e-3
     of (a)'s, the sharded scores equal score_level unsharded on the card
-    (1e-6), the dryrun's checks on every rank, and every tensor the ranks
-    report (scores, poses, collectives, pyramids) lies on the card."""
+    (1e-6), the dryrun's checks on every rank, every tensor the ranks
+    report (scores, poses, collectives, pyramids) lies on the card, and
+    each rank's kernel launches on the card: the 2D drain's per-scan
+    builder launches the LM and the scatter insertion, the 3D drain none
+    of the four 2D kernels."""
     from cartographer_tpu_torch.testing.production_dryrun import (
         check_drain_2d,
         check_drain_3d,
@@ -2918,13 +3537,24 @@ def multigpu_phase(device, smi):
             check(st)
             if st["tensor_devices"] != [kind]:
                 raise AssertionError(f"{name} tensors on {st['tensor_devices']}")
+            if on_card and name == "production_drain_2d":
+                # The per-scan builder on a probability grid: every node
+                # but the first matched, every node inserted.
+                require_launches(st["launches"], "lm_match_2d", st["num_nodes"] - 1, "nodes")
+                require_launches(st["launches"], "supercover_scatter_2d", st["num_nodes"],
+                                 "nodes")
+                require_none(st["launches"], ["supercover_dense_2d"], "the per-scan path")
+            elif on_card:
+                require_none(st["launches"], ["correlative_window", *NEW_2D_KERNELS],
+                             "the 3D drain")
         if abs(stats[0]["pose_digest"] - stats[1]["pose_digest"]) > 1e-6:
             raise AssertionError(f"ranks disagree on {name}: "
                                  f"{[st['pose_digest'] for st in stats]}")
         drains[name] = {k: stats[0][k] for k in (
             "num_nodes", "inter_constraints", "max_node_error_m", "travel_m",
             "sharded_search_batches", "sharded_spa_solves", "seconds")}
-        drains[name]["window_launches"] = sum(st["window_launches"] for st in stats)
+        drains[name]["launches"] = {k: sum(st["launches"][k] for st in stats)
+                                    for k in stats[0]["launches"]}
     run_b = {"backend": "gloo", "world_size": 2, "ranks": ranks,
              "run_s": time.perf_counter() - t0}
     r = {
@@ -2932,7 +3562,8 @@ def multigpu_phase(device, smi):
         "one_rank": run_a,
         "two_ranks": run_b,
         "drains": drains,
-        "window_launches": sum(d["window_launches"] for d in drains.values()),
+        "launches": {k: sum(d["launches"][k] for d in drains.values())
+                     for k in drains["production_drain_2d"]["launches"]},
         "phase_s": time.perf_counter() - t_phase,
         "card": smi,
     }
@@ -2980,10 +3611,17 @@ def main() -> int:
         return 1 if study["failed"] else 0
 
     kernels = timed("kernel", kernel_phase, device)
-    sl, real_args = timed("slice", slice_phase, device, smi)
-    kernels["real"] = kernel_case("real", real_args)
+    cases = {"correlative_window": kernels, **timed("kernel_2d", kernel_phase_2d, device)}
+    sl, real = timed("slice", slice_phase, device, smi)
+    kernels["real"] = kernel_case("real", real["correlative_window"])
+    cases["lm_match_2d"]["real"] = lm_case("real", real["lm_match_2d"])
+    cases["supercover_dense_2d"]["real"] = insertion_case(
+        "real", "dense", real["supercover_dense_2d"])
     be, saved_2d = timed("backend", backend_phase, device, smi)
+    cases["lm_match_2d"]["real_refine"] = lm_case("real_refine", saved_2d.pop("refine_inputs"))
     se, per_scan_cases = timed("sensors", sensors_phase, device, smi)
+    cases["supercover_scatter_2d"]["real"] = insertion_case(
+        "real", "scatter", per_scan_cases.pop("scatter_per_scan"))
     for name, args in per_scan_cases.items():
         kernels[name] = kernel_case(name, args)
     s3 = timed("local_slam_3d", local_slam_3d_phase, device, smi)
@@ -2995,42 +3633,55 @@ def main() -> int:
     mg = timed("multigpu", multigpu_phase, device, smi)
     emit({"phase": "seconds", **seconds, "card": smi})
 
-    # Each path's launches, counted from 0 just before it was driven.
-    by_path = {
-        "slice_chunked": sl["launches"]["correlative_window"],
-        "backend_map_builder": be["launches"]["correlative_window"],
-        "sensors_chunked": se["chunked"]["launches"]["correlative_window"],
-        "sensors_per_scan": se["per_scan"]["launches"]["correlative_window"],
-        "sensors_per_scan_tsdf": se["per_scan_tsdf"]["launches"]["correlative_window"],
-        "sensors_map_builder_default": se["map_builder"]["launches"]["correlative_window"],
-        "local_slam_3d_chunked": s3["chunked"]["launches"]["correlative_window"],
-        "local_slam_3d_per_scan": s3["per_scan"]["launches"]["correlative_window"],
-        "backend_3d_map_builder": b3["map_builder"]["launches"]["correlative_window"],
-        "persist_localization": pe["localization"]["launches"]["correlative_window"],
-        "persist_imu_based_3d": pe["imu_based_3d"]["launches"]["correlative_window"],
-        "cloud_server": cl["server"]["launches"]["correlative_window"],
-        "cloud_uplink": cl["uplink"]["launches"]["correlative_window"],
-        "multigpu": mg["window_launches"],
+    # Each path's launches of each kernel, counted from 0 just before it
+    # was driven.
+    paths = {
+        "slice_chunked": sl["launches"],
+        "backend_map_builder": be["launches"],
+        "sensors_chunked": se["chunked"]["launches"],
+        "sensors_per_scan": se["per_scan"]["launches"],
+        "sensors_per_scan_tsdf": se["per_scan_tsdf"]["launches"],
+        "sensors_map_builder_default": se["map_builder"]["launches"],
+        "local_slam_3d_chunked": s3["chunked"]["launches"],
+        "local_slam_3d_per_scan": s3["per_scan"]["launches"],
+        "backend_3d_map_builder": b3["map_builder"]["launches"],
+        "persist_localization": pe["localization"]["launches"],
+        "persist_imu_based_3d": pe["imu_based_3d"]["launches"],
+        "cloud_server": cl["server"]["launches"],
+        "cloud_uplink": cl["uplink"]["launches"],
+        "multigpu": mg["launches"],
     }
-    main_case = kernels["main"]
-    emit({"kernels": [{
-        "name": "correlative_window",
-        "route": "cuda",
-        "source": "cartographer_tpu_torch/csrc/correlative_window.cu",
-        "replaces": "cartographer_tpu/ops/pallas_kernels.py:82",
-        "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,
-        # Every case, the localization and cloud paths' among them.
-        "cases": {name: {"ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
-                         "bound_ms": c["bound_ms"], "max_abs_err": c["max_abs_err"]}
-                  for name, c in kernels.items()},
-    }]})
+    sources = {
+        "correlative_window": ("correlative_window.cu",
+                               "cartographer_tpu/ops/pallas_kernels.py:82"),
+        "lm_match_2d": ("lm_match_2d.cu",
+                        "cartographer_tpu/ops/scan_matching/gauss_newton_2d.py:498"),
+        "supercover_dense_2d": ("supercover_2d.cu", "cartographer_tpu/ops/raycast_2d.py:192"),
+        "supercover_scatter_2d": ("supercover_2d.cu", "cartographer_tpu/ops/raycast_2d.py:32"),
+    }
+    line = []
+    for name, (source, replaces) in sources.items():
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        main_case = cases[name]["main"]
+        line.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"cartographer_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": main_case["max_abs_err"],
+            "ms": main_case["kernel_ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": None,
+            # Every case, the real paths' among them.
+            "cases": {case: {"ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+                             "bound_ms": c["bound_ms"], "max_abs_err": c["max_abs_err"]}
+                      for case, c in cases[name].items()},
+        })
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

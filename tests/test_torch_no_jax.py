@@ -61,6 +61,8 @@ local_slam += ["common.blocking_queue", "common.rate_timer", "common.math", "com
 # The multi-rank slice's modules.
 local_slam += ["parallel", "parallel.partition", "parallel.sharded", "parallel.multihost",
                "testing.production_dryrun", "tools.multihost_worker"]
+# The 2D main path's kernels.
+local_slam += ["kernels.lm_match_2d", "kernels.supercover_2d", "testing.kernel_cases_2d"]
 missing = [m for m in local_slam if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print(len(names))
