@@ -1,0 +1,63 @@
+"""Finds each piece of a cell by name, in files of its own:
+
+- the cell: `cells/<workload name>.json` (its configuration, traffic mix,
+  stream sizes, correctness sample and limits);
+- its configuration: `configs/<config>.json`;
+- its traffic mix: `mixes/<traffic>.json`;
+- each metric's reader: `metrics/<metric name>.py`, a `read(record)`
+  that returns a number, or None where it finds nothing to read;
+
+and which metrics the cell reports, from `BENCHMARK.json` at the root of
+the checkout. A new cell, configuration, mix or metric is new files and
+entries there; no file that exists changes.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def benchmark(root: Path = ROOT) -> dict:
+    return load_json(root / "BENCHMARK.json")
+
+
+def workload(name: str, root: Path = ROOT) -> dict:
+    """The BENCHMARK.json entry, the cell's file, its configuration and
+    its mix, by the workload's name."""
+    bench = benchmark(root)
+    entry = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if entry is None:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+    base = root / HERE.name
+    cell = load_json(base / "cells" / f"{name}.json")
+    config = load_json(base / "configs" / f"{entry['config']}.json")
+    mix = load_json(base / "mixes" / f"{entry['traffic']}.json")
+    return {"entry": entry, "cell": cell, "config": config, "mix": mix}
+
+
+def metrics_for(name: str, trace: bool, root: Path = ROOT):
+    """[(metric entry)] the cell reports: its end-to-end metrics with
+    `trace` off, its per-layer metrics with it on. A metric without
+    `workloads` belongs to every cell."""
+    bench = benchmark(root)
+    group = bench["per_layer"] if trace else bench["end_to_end"]
+    return [m for m in group if name in m.get("workloads", [name])]
+
+
+def reader(metric: str, root: Path = ROOT):
+    """The `read` function of metrics/<metric>.py."""
+    path = root / HERE.name / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"slam_bench.metrics.{metric}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
