@@ -83,6 +83,8 @@ class _PendingSearch:
     node_id: NodeId
     constant_data: TrajectoryNodeData
     initial_relative_pose: Optional[np.ndarray]  # None => global (full submap)
+    # time.monotonic() at enqueue: the drain reports the oldest one's age.
+    enqueued: float = dataclasses.field(default_factory=_time.monotonic)
 
 
 class ConstraintBuilder2D:
@@ -197,9 +199,17 @@ class ConstraintBuilder2D:
         self._num_finished_nodes += 1
 
     def run_pending(self) -> List[Constraint]:
-        """Execute queued searches; returns found constraints (WhenDone)."""
+        """Execute queued searches; returns found constraints (WhenDone).
+        Sets the work queue gauges as the reference's DrainWorkQueue
+        does: the searches taken and the age of the oldest. The three
+        phases are the drain.search, drain.refine_dispatch and
+        drain.refine_wait spans, inside the pose graph's drain span."""
         with self._pending_lock:
             pending, self._pending = self._pending, []
+        metrics.pose_graph_work_queue_size.set(len(pending))
+        metrics.pose_graph_work_queue_delay.set(
+            _time.monotonic() - min(s.enqueued for s in pending) if pending else 0.0
+        )
         # Drop searches whose submap was evicted while they sat queued.
         stale = [s for s in pending if s.submap_id not in self._submap_grids]
         if stale:
@@ -249,18 +259,18 @@ class ConstraintBuilder2D:
                 self._search_pool = concurrent.futures.ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="bnb-search"
                 )
-            ts = _time.perf_counter()
+            searching = metrics.timed("drain.search")
             prep = self._prepare_native(chunks[0][1])
             future = self._search_pool.submit(
                 native_bnb.match_batch, prep["pyramids"], prep["clouds"], prep["params"]
             )
-            t_search += _time.perf_counter() - ts
+            t_search += searching.stop()
         # Per chunk: [(search, refined pose or None)], the batched jobs as
         # (index into that list, search, BnB result), their device rows.
         staged = []
         num_matches = 0
         for ci, (kind, chunk) in enumerate(chunks):
-            ts = _time.perf_counter()
+            searching = metrics.timed("drain.search")
             if kind == "device":
                 decoded = self._run_searches_device(chunk)
             elif use_worker:
@@ -274,7 +284,7 @@ class ConstraintBuilder2D:
                 decoded = self._decode_native(chunk, out_rows, found)
             else:
                 decoded = self._run_searches_native(chunk)
-            t_search += _time.perf_counter() - ts
+            t_search += searching.stop()
             refine = []
             jobs = []
             for search, result in decoded:
@@ -295,9 +305,9 @@ class ConstraintBuilder2D:
             num_matches += len(refine)
             rows = None
             if jobs:
-                tr = _time.perf_counter()
+                dispatch = metrics.timed("drain.refine_dispatch")
                 rows = self._batch_refine_dispatch([(s, r) for _, s, r in jobs])
-                t_refine_dispatch += _time.perf_counter() - tr
+                t_refine_dispatch += dispatch.stop()
             staged.append((refine, jobs, rows))
 
         results: List[Constraint] = []
@@ -307,9 +317,9 @@ class ConstraintBuilder2D:
         )
         for refine, jobs, rows in staged:
             if rows is not None:
-                tf = _time.perf_counter()
+                wait = metrics.timed("drain.refine_wait")
                 poses = rows[: len(jobs), :3].cpu().numpy().astype(np.float64)
-                t_refine_wait += _time.perf_counter() - tf
+                t_refine_wait += wait.stop()
                 poses[:, 2] = rigid2.normalize_angle(poses[:, 2])
                 for (i, _, _), pose in zip(jobs, poses):
                     refine[i] = (refine[i][0], pose)

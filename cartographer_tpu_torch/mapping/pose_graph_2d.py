@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 import logging
 import threading
 import time as _time
@@ -130,6 +131,9 @@ class PoseGraph2D:
         # Wall seconds of every optimization's solve, in order (timing
         # record for callers; the solve itself is in run_optimization).
         self.solve_seconds: List[float] = []
+        # The node whose work item runs the next optimization (guarded by
+        # the work lock): the key of the pose_graph.solve span.
+        self._work_item_node = None
 
     # -- public api ---------------------------------------------------------
 
@@ -152,13 +156,20 @@ class PoseGraph2D:
         trajectory_id: int,
         insertion_submaps: List[Submap2D],
     ) -> NodeId:
-        self._work_lock.acquire()
-        try:
-            return self._add_node_locked(
-                constant_data, trajectory_id, insertion_submaps
-            )
-        finally:
-            self._work_lock.release()
+        with metrics.span("pose_graph.add_node", constant_data.time):
+            self._acquire_work_lock()
+            try:
+                return self._add_node_locked(
+                    constant_data, trajectory_id, insertion_submaps
+                )
+            finally:
+                self._work_lock.release()
+
+    def _acquire_work_lock(self, key=None) -> None:
+        """Take the work lock; the wait is the pose_graph.work_lock_wait
+        span (its key the enclosing span's unless given)."""
+        with metrics.span("pose_graph.work_lock_wait", key):
+            self._work_lock.acquire()
 
     def _add_node_locked(
         self,
@@ -431,31 +442,36 @@ class PoseGraph2D:
             and self._num_nodes_since_last_loop_closure
             >= self._options.optimize_every_n_nodes
         ):
-            self._dispatch_work_queue()
+            self._dispatch_work_queue(node_id)
 
-    def _dispatch_work_queue(self) -> None:
+    def _dispatch_work_queue(self, node_id=None) -> None:
+        """Drain the work queue: inline without a thread pool, else on it.
+        `node_id`, the node that asked for the drain, keys its spans."""
         if self._thread_pool is None:
-            self._handle_work_queue()
+            self._handle_work_queue(node_id)
             return
         # Schedule at most one drain at a time (DrainWorkQueue semantics):
         # the check and the set happen under the work lock, so two callers
         # (add_node, wait_for_all_computations) cannot both schedule. A
         # drain that FAILED stays pending, so wait_for_all_computations
         # re-raises its error instead of a later drain replacing it.
-        with self._work_lock:
+        self._acquire_work_lock(node_id)
+        try:
             task = self._pending_task
             if task is not None and task.state != TaskState.COMPLETED:
                 return
-            task = Task(self._locked_handle_work_queue)
+            task = Task(functools.partial(self._locked_handle_work_queue, node_id))
             self._pending_task = task
+        finally:
+            self._work_lock.release()
         self._thread_pool.schedule(task)
 
-    def _run_pending(self):
+    def _run_pending(self, node_id=None):
         """The constraint builder's run_pending, one caller at a time."""
-        with self._drain_lock:
+        with self._drain_lock, metrics.span("pose_graph.drain", node_id):
             return self._constraint_builder.run_pending()
 
-    def _locked_handle_work_queue(self) -> None:
+    def _locked_handle_work_queue(self, node_id=None) -> None:
         # The loop-closure searches are the multi-second part of a drain
         # and they operate purely on data staged at enqueue time (popped
         # pending list, frozen finished-submap grids, builder-side
@@ -467,10 +483,13 @@ class PoseGraph2D:
         # (reference: constraint searches are thread-pool tasks and
         # HandleWorkQueue holds the mutex only for bookkeeping,
         # constraint_builder_2d.cc:102-136, pose_graph_2d.cc:520-544).
-        new_constraints = self._run_pending()
-        with self._work_lock:
+        new_constraints = self._run_pending(node_id)
+        self._acquire_work_lock(node_id)
+        try:
             self._merge_constraints(new_constraints)
-            self._finish_work_queue()
+            self._finish_work_queue(node_id)
+        finally:
+            self._work_lock.release()
 
     def wait_for_all_computations(self, timeout: float = 600.0) -> None:
         """Reference WaitForAllComputations (pose_graph_2d.cc:546-620):
@@ -594,8 +613,8 @@ class PoseGraph2D:
             if node_id not in data.node_ids:
                 self._compute_constraint(node_id, submap_id)
 
-    def _drain_constraints(self) -> None:
-        self._merge_constraints(self._run_pending())
+    def _drain_constraints(self, node_id=None) -> None:
+        self._merge_constraints(self._run_pending(node_id))
 
     def _merge_constraints(self, new_constraints) -> None:
         for c in new_constraints:
@@ -612,14 +631,16 @@ class PoseGraph2D:
             sum(1 for c in self._constraints if c.tag == INTRA_SUBMAP)
         )
 
-    def _handle_work_queue(self) -> None:
+    def _handle_work_queue(self, node_id=None) -> None:
         """Reference HandleWorkQueue: merge found constraints, optimize,
         update connectivity, run trimmers."""
-        self._drain_constraints()
-        self._finish_work_queue()
+        self._drain_constraints(node_id)
+        self._finish_work_queue(node_id)
 
-    def _finish_work_queue(self) -> None:
+    def _finish_work_queue(self, node_id=None) -> None:
+        self._work_item_node = node_id
         self.run_optimization()
+        self._work_item_node = None
         self._num_nodes_since_last_loop_closure = 0
         for trimmer in list(self._trimmers):
             trimmer.trim(TrimmingHandle(self))
@@ -634,11 +655,11 @@ class PoseGraph2D:
             for t, s in self._trajectory_states.items()
             if s == TrajectoryState.FROZEN
         }
-        t0 = _time.perf_counter()
+        solve = metrics.timed("pose_graph.solve", self._work_item_node)
         self._optimization_problem.solve(
             self._constraints, frozen, self._landmark_nodes
         )
-        self.solve_seconds.append(_time.perf_counter() - t0)
+        self.solve_seconds.append(solve.stop())
         # Frozen landmarks keep their SetLandmarkPose value (the reference
         # holds the parameter block constant in Ceres).
         for lid, node in self._landmark_nodes.items():

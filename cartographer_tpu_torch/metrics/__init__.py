@@ -4,7 +4,8 @@ Port of cartographer_tpu/metrics/__init__.py. Reference:
 cartographer/metrics/{counter,gauge,histogram,family_factory}.h and
 metrics/register.cc:31-41 — instrumentation is free unless a real family
 factory is registered; metrics/prometheus.py renders a real factory's
-registry for a scrape.
+registry for a scrape. metrics/trace.py adds spans of the program's work,
+null outside a torch profiler session (`span`, `timed`, `spans`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ from __future__ import annotations
 import bisect
 import threading
 from typing import Dict, List, Optional, Sequence
+
+from cartographer_tpu_torch.metrics.trace import (  # noqa: F401
+    NULL_SPAN,
+    reset_spans,
+    span,
+    spans,
+    spans_dropped,
+    timed,
+)
 
 
 class Counter:
