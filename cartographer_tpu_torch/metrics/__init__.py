@@ -166,6 +166,7 @@ def enable_collection() -> FamilyFactory:
 
 def _register_all() -> None:
     global local_slam_latency, local_slam_real_time_ratio, grid_oob_points
+    global local_slam_subdivisions_per_unwarp
     global frontend_slow_path_scans, frontend_odometry_dropped
     global pose_graph_constraints_inter, pose_graph_constraints_intra
     global constraint_scores, constraints_found, constraints_searched
@@ -175,6 +176,12 @@ def _register_all() -> None:
     local_slam_latency = _factory.gauge("mapping_2d_local_trajectory_builder_latency")
     local_slam_real_time_ratio = _factory.gauge(
         "mapping_2d_local_trajectory_builder_real_time_ratio"
+    )
+    # Range scans (subdivisions) the per-scan 2D builder unwarped in its
+    # last extrapolator call: num_accumulated_range_data when it unwarps an
+    # accumulation at once, 1 with the IMU-based extrapolator.
+    local_slam_subdivisions_per_unwarp = _factory.gauge(
+        "mapping_2d_local_trajectory_builder_subdivisions_per_unwarp"
     )
     # Local-SLAM configurations that asked for the chunked frontend and
     # fell back to the per-scan path: scans counted instead of silent.

@@ -29,6 +29,7 @@ from cartographer_tpu.mapping.scan_matching_2d import (
 )
 from cartographer_tpu.ops import raycast_2d as jray
 from cartographer_tpu.sensor import data as jdata
+from cartographer_tpu.testing.synthetic import FAKE_START_TIME
 from cartographer_tpu_torch import metrics
 from cartographer_tpu_torch.common import config as tconfig
 from cartographer_tpu_torch.mapping import grid_2d as tgrid
@@ -46,7 +47,7 @@ from cartographer_tpu_torch.ops import raycast_2d as tray
 from cartographer_tpu_torch.sensor import data as tdata
 from tests.test_torch_backend_card import one_torch_thread, wall_world  # noqa: F401
 from tests.test_torch_frontend_2d import RES, WINDOW, semicircle_scans
-from tests.test_torch_imu_odometry import sensor_events
+from tests.test_torch_imu_odometry import VELOCITY, sensor_events
 
 
 def random_insert_case(seed, size=96, n=300):
@@ -405,3 +406,156 @@ def test_per_scan_entry_points_need_cuda_unless_told_otherwise():
     local = mb.get_trajectory_builder(tid)._wrapped._local_trajectory_builder
     assert isinstance(local, TorchLocalBuilder) and local._device.type == "cpu"
     mb.shutdown()
+
+
+def revolution_events(num_revs, odometry=False, imu_delay=0.0, times_per_subdivision=None):
+    """The semicircle world's scans (every 10th wall point) as 40 Hz
+    revolutions cut into ten messages, as the scanner publishes them:
+    the points' times spread over 25 ms ending at the scan's time, each
+    message stamped with its last point's. IMU at 400 Hz with a varying
+    yaw rate, so that IMU samples fall inside every revolution; with
+    `odometry`, odometry at 50 Hz. `times_per_subdivision` coarsens a
+    message's point times to that many. Time-sorted, IMU first at equal
+    times, as the sensor collator hands them over, but for `imu_delay`:
+    each IMU sample then comes that much later, though before the end of
+    its revolution. One list for each package."""
+    raw, revolution_ends = [], []
+    for m in semicircle_scans(num_revs):
+        points = m.ranges.points[::10]
+        t = m.time - 0.025 * (1.0 - np.arange(1, len(points) + 1) / len(points))
+        for part in np.array_split(np.arange(len(points)), 10):
+            times = t[part]
+            if times_per_subdivision is not None:
+                times = np.concatenate([
+                    np.full(len(g), times[g[-1]])
+                    for g in np.array_split(np.arange(len(part)), times_per_subdivision)])
+            end = float(times[-1])
+            raw.append((end, "range", end, (points[part], (times - end).astype(np.float32))))
+        revolution_ends.append(end)
+    last = revolution_ends[-1]
+    rng = np.random.default_rng(7)
+    for k in range(int((last - FAKE_START_TIME + 0.04) / 0.0025)):
+        t = FAKE_START_TIME - 0.04 + 0.0025 * k
+        due = revolution_ends[np.searchsorted(revolution_ends, t)]
+        raw.append((min(t + imu_delay, due - 1e-9), "imu", t, rng.normal(0.0, 0.05)))
+    if odometry:
+        for t in np.arange(FAKE_START_TIME + 0.01, last, 0.02):
+            raw.append((float(t), "odom", float(t), (t - FAKE_START_TIME) * VELOCITY))
+    raw.sort(key=lambda e: (e[0], e[1] != "imu"))
+
+    def events(pkg):
+        out = []
+        for _, kind, t, value in raw:
+            if kind == "range":
+                payload = pkg.TimedPointCloudData(
+                    t, np.zeros(3, np.float32), pkg.TimedPointCloud(*value))
+            elif kind == "imu":
+                payload = pkg.ImuData(time=t, linear_acceleration=np.array([0.0, 0.0, 9.8]),
+                                      angular_velocity=np.array([0.0, 0.0, value]))
+            else:
+                payload = pkg.OdometryData(
+                    time=t, pose=np.concatenate([value, [1.0, 0.0, 0.0, 0.0]]))
+            out.append((kind, t, payload))
+        return out
+
+    return events(jdata), events(tdata)
+
+
+# name: (num_accumulated_range_data, use_imu_based, odometry, IMU delay in
+# s, subdivisions per unwarp; None: as odometry or late IMU samples split
+# the accumulation)
+ACCUMULATION_CASES = {
+    "batched": (10, False, False, 0.0, 10),
+    "imu_based": (10, True, False, 0.0, 1),
+    "one_per_accumulation": (1, False, False, 0.0, 1),
+    "odometry": (10, False, True, 0.0, None),
+    "late_imu": (10, False, False, 0.006, None),
+}
+
+
+@pytest.mark.parametrize("case", list(ACCUMULATION_CASES))
+def test_local_builder_unwarps_each_accumulation_once(case):
+    """Ten subdivisions a revolution with IMU over 4 revolutions, the
+    port's builder carried along the JAX one's matches: the range data
+    each hands on after the unwarp (`_add_accumulated_range_data`) and
+    each pose prediction agree within 1e-6 m (1e-4 with the IMU-based
+    extrapolator's float32 window fit), as the JAX builder unwarps every
+    subdivision apart. The constant-velocity extrapolator unwarps an
+    accumulation in one call; the IMU-based one, and one subdivision an
+    accumulation, take one call a subdivision; odometry splits the
+    accumulation where it arrives, and so does an IMU sample that comes
+    after a subdivision it precedes. The gauge of subdivisions per unwarp
+    reads the last call's."""
+    num_accumulated, use_imu_based, odometry, imu_delay, per_unwarp = (
+        ACCUMULATION_CASES[case])
+
+    def options(mod):
+        o = per_scan_options(mod, use_imu=True)
+        o.num_accumulated_range_data = num_accumulated
+        o.pose_extrapolator.use_imu_based = use_imu_based
+        o.pose_extrapolator.imu_based.pose_queue_duration = 0.06
+        return o
+
+    jb = JaxLocalBuilder(options(jconfig), {"range"})
+    tb = TorchLocalBuilder(options(tconfig), {"range"}, device="cpu")
+    j_match, t_match = jb._scan_match, tb._scan_match
+    steps, handed = [], {jb: [], tb: []}
+
+    def j_step(*args):  # (time, prediction, cloud) in the JAX builder
+        pose = j_match(*args)
+        steps.append([np.asarray(args[-2]), None, np.asarray(pose)])
+        return pose
+
+    def t_step(prediction, cloud):
+        t_match(prediction, cloud)
+        step = next(s for s in steps if s[1] is None)
+        step[1] = np.asarray(prediction)
+        return step[2]
+
+    jb._scan_match, tb._scan_match = j_step, t_step
+    for builder in (jb, tb):
+        def wrapped(time, range_data, gravity, accumulated=builder._add_accumulated_range_data,
+                    out=handed[builder]):
+            out.append((time, range_data))
+            return accumulated(time, range_data, gravity)
+        builder._add_accumulated_range_data = wrapped
+
+    j_ev, t_ev = revolution_events(4, odometry, imu_delay, 1 if use_imu_based else None)
+    calls = []
+    collected = metrics.enable_collection()
+    try:
+        j_res, t_res = feed_per_scan(jb, j_ev), []
+        for event in t_ev:
+            t_res.extend(feed_per_scan(tb, [event]))
+            extrapolator = tb._extrapolator
+            if extrapolator is not None and "extrapolate_poses_batch" not in vars(extrapolator):
+                def counted(times, batch=extrapolator.extrapolate_poses_batch):
+                    calls.append(len(times))
+                    return batch(times)
+                extrapolator.extrapolate_poses_batch = counted
+        gauge = collected.registry()[
+            "mapping_2d_local_trajectory_builder_subdivisions_per_unwarp"].value()
+    finally:
+        metrics.register_family_factory(metrics.FamilyFactory())
+
+    atol = 1e-4 if use_imu_based else 1e-6
+    accumulations = len(handed[tb])
+    assert accumulations == len(handed[jb]) == 40 // num_accumulated
+    for (j_time, j_rd), (t_time, t_rd) in zip(handed[jb], handed[tb]):
+        assert t_time == j_time
+        np.testing.assert_allclose(t_rd.origin, j_rd.origin, atol=atol)
+        for got, want in ((t_rd.returns, j_rd.returns), (t_rd.misses, j_rd.misses)):
+            assert got.size == want.size
+            np.testing.assert_allclose(got.points, want.points, atol=atol)
+    compare_runs(j_res, t_res, 1e-3)
+    assert len(steps) == len(t_res) == accumulations
+    for j_prediction, t_prediction, _ in steps:
+        np.testing.assert_allclose(t_prediction, j_prediction, atol=atol)
+
+    scans = [e[2] for e in t_ev if e[0] == "range"]
+    assert not tb._staged_times and sum(calls) == sum(len(m.ranges.points) for m in scans)
+    if per_unwarp is None:  # odometry every 20 ms, IMU every 2.5 ms
+        assert accumulations < len(calls) <= len(scans)
+    else:
+        assert len(calls) == len(scans) // per_unwarp
+        assert gauge == per_unwarp

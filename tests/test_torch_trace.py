@@ -137,7 +137,8 @@ def test_the_cap_counts_dropped_spans(monkeypatch):
 def map_builder():
     """Per-scan 2D local SLAM with an asynchronous pose graph that drains
     every 4 nodes through the native search and the batched refinement,
-    over a short semicircle world (15 accumulations of 2 messages)."""
+    over a short semicircle world (15 accumulations of 2 messages, each
+    unwarped in one extrapolator call)."""
     pg = config.PoseGraphOptions(optimize_every_n_nodes=4)
     pg.constraint_builder.fast_correlative_scan_matcher = (
         config.FastCorrelativeScanMatcherOptions2D(
@@ -192,11 +193,15 @@ def test_a_map_builder_run_records_every_span_of_the_main_path():
             wraps.append((t0, time.perf_counter_ns()))
 
     local.add_range_data = wrapped
+    collected = metrics.enable_collection()
     try:
         with session():
             data = drive(mb, tid)
+        per_unwarp = collected.registry()[
+            "mapping_2d_local_trajectory_builder_subdivisions_per_unwarp"].value()
     finally:
         mb.shutdown()
+        metrics.register_family_factory(metrics.FamilyFactory(real=False))
     spans = recorded()
     assert set(MAIN_PATH) <= {s[0] for s in spans}
     feeder = {s[4] for s in spans if s[0] == "facade.add_sensor_data"}
@@ -212,6 +217,16 @@ def test_a_map_builder_run_records_every_span_of_the_main_path():
     # Per accumulation: filter (twice), scan_match and insert, in order.
     accumulations = [s for s in stages if s[0] == "local_slam.insert"]
     assert len(accumulations) == sum(s[0] == "local_slam.scan_match" for s in stages) > 5
+    # The accumulation's two subdivisions are unwarped in one call, at its
+    # close: each call opens with its own unwarp span, the closing one
+    # (staging and the unwarp of both) before the filter.
+    assert per_unwarp == 2
+    calls = [[s[0] for s in stages if a <= s[1] and s[2] <= b] for a, b in wraps]
+    assert all(c.count("local_slam.unwarp") == 1 and c[0] == "local_slam.unwarp"
+               for c in calls)
+    closing = [c for c in calls if len(c) > 1]
+    assert len(closing) == len(data) // 2
+    assert all(c[1:3] == ["local_slam.filter", "local_slam.filter"] for c in closing)
     for s in spans:
         if s[0].startswith("drain."):
             assert spans[s[5]][0] == "pose_graph.drain"
