@@ -3,149 +3,18 @@
 The entry the window drives is `MapBuilder`'s trajectory builder
 (`add_sensor_data`), built by `add_trajectory_builder` with a
 `local_slam_result_callback`; the asynchronous pose graph runs beside it
-on its thread pool. `Probe` wraps the bound methods of the trajectory's
-own instances: always to sample what the correctness check compares
-(what the extrapolator and the gravity estimate gave the stages before
-the scan match, the scan matcher's inputs and pose, the grids around an
-insertion, the SPA solves), and in the traced run also to record spans
-around the calls into each layer.
+on its thread pool. What wraps the trajectory's own instances, to sample
+what the correctness check compares and to record the benchmark's spans,
+is the configuration's kind's `Probe` (`harness/<kind>.py`); what is here
+serves every kind.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List
 
 import numpy as np
-
-
-class Probe:
-    """Spans and sampled captures from the benchmark's side of each
-    layer's boundary. Spans are (name, start, end) on `time.perf_counter`;
-    captures are kept only while `recording` is set."""
-
-    def __init__(self, rng: np.random.Generator, sample: Dict[str, float], spans: bool):
-        self.rng = rng
-        self.sample = sample
-        self.with_spans = spans
-        self.recording = False
-        self.spans: List[tuple] = []
-        self.matches: List[dict] = []
-        self.insertions: List[dict] = []
-        self.solves: List[dict] = []
-        self._lock = threading.Lock()
-        self._batches = None  # the extrapolator's per-point poses since the last accumulation
-        self._upstream = None
-
-    def _take(self, kind: str) -> bool:
-        # One draw per call in every run, so that the sample depends on the
-        # seed and the call's place in the window alone.
-        return bool(self.rng.random() < self.sample.get(kind, 0.0)) and self.recording
-
-    def span(self, name, fn):
-        if not self.with_spans:
-            return fn
-        spans = self.spans
-
-        def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spans.append((name, t0, time.perf_counter()))
-        return wrapped
-
-    def attach(self, map_builder, trajectory_id: int) -> None:
-        """Wrap the trajectory's facade, local builder, scan matcher,
-        active submaps and pose graph."""
-        collated = map_builder.get_trajectory_builder(trajectory_id)
-        local = collated._wrapped._local_trajectory_builder
-        collated.add_sensor_data = self.span("facade", collated.add_sensor_data)
-        local.add_range_data = self.span("local_slam", local.add_range_data)
-        pg = map_builder.pose_graph
-        pg._run_pending = self.span("drain", pg._run_pending)
-        pg.run_optimization = self.span("solve", pg.run_optimization)
-        self._wrap_accumulated(local)
-        self._wrap_match(local._ceres_scan_matcher)
-        self._wrap_insert(local._active_submaps)
-        self._wrap_solve()
-        self.local = local
-
-    def begin(self) -> None:
-        """Open the window's captures: from here on the extrapolator's
-        per-point poses are kept for each accumulation (the first one in
-        the window, which began before, is left out of that check)."""
-        extrapolator = self.local._extrapolator
-        batch = extrapolator.extrapolate_poses_batch
-
-        def wrapped(times):
-            poses = batch(times)
-            if self._batches is not None:
-                self._batches.append((np.array(times, np.float64), np.array(poses, np.float64)))
-            return poses
-        extrapolator.extrapolate_poses_batch = wrapped
-        self.recording = True
-
-    def _wrap_accumulated(self, local) -> None:
-        """What the stages before the scan match gave it: each
-        accumulation's per-point poses, the gravity alignment, and the
-        voxel-filtered returns in the gravity-aligned frame."""
-        accumulated = local._add_accumulated_range_data
-
-        def wrapped(time, range_data, gravity_alignment):
-            batches, self._batches = self._batches, ([] if self.recording else None)
-            self._upstream = {
-                "time": float(time), "batches": batches,
-                "gravity": np.array(gravity_alignment, np.float64),
-                "returns": np.array(range_data.returns.points, np.float32)}
-            return accumulated(time, range_data, gravity_alignment)
-        local._add_accumulated_range_data = wrapped
-
-    def _wrap_match(self, matcher) -> None:
-        match = matcher.match
-
-        def wrapped(*args, **kwargs):
-            take = self._take("matches")
-            out = match(*args, **kwargs)
-            if take:
-                self.matches.append({"args": args, "kwargs": kwargs, "out": out,
-                                     "upstream": self._upstream})
-            return out
-        matcher.match = wrapped
-
-    def _wrap_insert(self, active) -> None:
-        insert = active._insert
-
-        def wrapped2(range_data):
-            take = self._take("insertions")
-            before = [s.grid for s in active._submaps]
-            insert(range_data)
-            if take:
-                self.insertions.append({"range_data": range_data, "before": before,
-                                        "after": [s.grid for s in active._submaps]})
-        active._insert = wrapped2
-
-    def _wrap_solve(self) -> None:
-        from cartographer_tpu_torch.mapping import optimization_problem_2d as op
-
-        solve = op.solve
-        probe = self
-
-        def wrapped(problem, *args, **kwargs):
-            out = solve(problem, *args, **kwargs)
-            if probe.recording:
-                with probe._lock:
-                    probe.solves.append({"problem": problem, "args": args,
-                                         "kwargs": kwargs, "out": out})
-            return out
-        op.solve = wrapped
-        self._restore_solve = (op, solve)
-
-    def detach(self) -> None:
-        restore = getattr(self, "_restore_solve", None)
-        if restore is not None:
-            restore[0].solve = restore[1]
 
 
 def build(config: dict, device, on_result):

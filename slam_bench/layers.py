@@ -4,8 +4,8 @@ against its bound.
 
 Every reader gets one run's `record`: the window [t0, t1) on
 `time.perf_counter`, the revolutions due in it and when each one's
-result came back, the spans of `drive.Probe` and, in the traced run, the
-device events and kernel launches of `trace.DeviceTrace`.
+result came back, the spans of the kind's `Probe` and, in the traced
+run, the device events and kernel launches of `trace.DeviceTrace`.
 """
 
 from __future__ import annotations

@@ -98,6 +98,25 @@ def innermost_at(spans, times):
     return out
 
 
+def host_activity(spans, outside, times):
+    """What the host was doing at each of `times`: the innermost program
+    span open on the feeding thread; where none is, the innermost one on
+    the other threads (the pose graph's pool); where no program span is
+    open at all (or `spans` is None), the innermost of the benchmark's
+    own spans `outside`, (name, start, end); else "feeder (no span open)"."""
+    order = sorted(range(len(times)), key=lambda i: times[i])
+    at = [times[i] for i in order]
+    spans = spans or []
+    thread = feeding_thread(spans)
+    tiers = (innermost_at([sp for sp in spans if sp[4] == thread], at),
+             innermost_at([sp for sp in spans if sp[4] != thread], at),
+             innermost_at(outside, at))
+    out = [None] * len(times)
+    for j, i in enumerate(order):
+        out[i] = next((names[j] for names in tiers if names[j]), "feeder (no span open)")
+    return out
+
+
 def idle_by_span(record, spans):
     """Device-idle seconds of the window split by what the program had
     open: {(the feeding thread's innermost span, the other threads'

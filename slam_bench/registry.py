@@ -4,12 +4,32 @@
   stream sizes, correctness sample and limits);
 - its configuration: `configs/<config>.json`;
 - its traffic mix: `mixes/<traffic>.json`;
+- its configuration's kind: `harness/<kind>.py`, where the configuration
+  names its kind under `"harness"` (`planar_2d` where it names none);
 - each metric's reader: `metrics/<metric name>.py`, a `read(record)`
   that returns a number, or None where it finds nothing to read;
 
 and which metrics the cell reports, from `BENCHMARK.json` at the root of
-the checkout. A new cell, configuration, mix or metric is new files and
-entries there; no file that exists changes.
+the checkout. A new cell, configuration, kind, mix or metric is new files
+and entries there; no file that exists changes.
+
+A kind holds what depends on the configuration's sensors, captures and
+reference; `run.measure` calls it wherever a run needs them:
+
+- `generate(config, revolutions, seed, device) -> world.Stream`;
+- `Probe(rng, sample, spans)`: `attach(map_builder, trajectory_id)`,
+  `begin()` (the window's captures open), `detach()`; `local`, the local
+  trajectory builder that `drive.warm_up` watches; `recording`, which the
+  run clears when the window's revolutions are in; `spans`, the
+  benchmark's own (name, start, end) spans in the traced run; and
+  `counts()`, what it sampled, for the result's `sample`;
+- `compare(probe, config, stream, missing, control=False) -> dict`:
+  every number the cell compares or records (`check.judge`);
+- `drift(poses, stream, revolutions)`, or None: a distance from the
+  generator's truth, printed and never compared;
+- optionally `record_launches(launches) -> [(module, name, original)]`:
+  wraps the kernels whose launches its roofline readers read, while the
+  traced run's `trace.DeviceTrace` runs.
 """
 
 from __future__ import annotations
@@ -54,10 +74,23 @@ def metrics_for(name: str, trace: bool, root: Path = ROOT):
     return [m for m in group if name in m.get("workloads", [name])]
 
 
+DEFAULT_HARNESS = "planar_2d"
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def reader(metric: str, root: Path = ROOT):
     """The `read` function of metrics/<metric>.py."""
     path = root / HERE.name / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"slam_bench.metrics.{metric}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(f"slam_bench.metrics.{metric}", path).read
+
+
+def harness(config: dict, root: Path = ROOT):
+    """The module harness/<kind>.py of the configuration's kind."""
+    kind = config.get("harness", DEFAULT_HARNESS)
+    return _load(f"slam_bench.harness.{kind}", root / HERE.name / "harness" / f"{kind}.py")

@@ -64,29 +64,6 @@ def power_limit() -> str:
         return "not read"
 
 
-def truth_drift(poses, truth, revs):
-    """The widest gap between the local poses' planar motion from the
-    first of `revs` and the truth's, in metres."""
-    import numpy as np
-
-    if len(revs) < 2:
-        return None
-
-    def planar(p):  # (x, y, yaw) of an SE(3) pose [t, q]
-        w, x, y, z = p[3:7]
-        return np.array([p[0], p[1], np.arctan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))])
-
-    def rel(a, b):  # b in a's frame
-        c, s = np.cos(a[2]), np.sin(a[2])
-        d = b[:2] - a[:2]
-        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1]])
-
-    first = revs[0]
-    local0, true0 = planar(poses[first]), truth[first][[0, 1, 3]]
-    return max(float(np.hypot(*(rel(local0, planar(poses[k])) - rel(true0, truth[k][[0, 1, 3]]))))
-               for k in revs)
-
-
 def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
             root=registry.ROOT, plant=None, control: bool = False) -> dict:
     """The run itself, on `device`; returns the result and what was
@@ -97,20 +74,21 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
     import numpy as np
     import torch
 
-    from slam_bench import check, drive, layers, world
+    from slam_bench import check, drive, layers
     from slam_bench.trace import DeviceTrace, breakdown
 
     spec = registry.workload(name, root)
     cell, config = spec["cell"], spec["config"]
     if spec["mix"]["loop"] != "closed":
         raise ValueError(f"{name}: the harness drives closed-loop mixes only")
-    stream = world.generate(config, revolutions_needed(cell, seconds), seed, device)
+    kind = registry.harness(config, root)
+    stream = kind.generate(config, revolutions_needed(cell, seconds), seed, device)
     # The stream's objects live to the end: keep the collector from
     # walking them again and again inside the window.
     gc.collect()
     gc.freeze()
 
-    probe = drive.Probe(np.random.default_rng([seed, 1]), cell["sample"], spans=trace)
+    probe = kind.Probe(np.random.default_rng([seed, 1]), cell["sample"], spans=trace)
     feeder = drive.Feeder(stream, None)
     mb, tid = drive.build(config, device, feeder.on_result)
     feeder.builder = mb.get_trajectory_builder(tid)
@@ -125,7 +103,7 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 
-    dtrace = DeviceTrace() if trace else None
+    dtrace = DeviceTrace(getattr(kind, "record_launches", None)) if trace else None
     if dtrace is not None:
         dtrace.start(device)
     probe.begin()
@@ -147,7 +125,8 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
         "spans": probe.spans, "device_events": dtrace.events if dtrace else [],
         "launches": dtrace.launches if dtrace else {},
     }
-    drift = truth_drift(feeder.poses, stream.true_poses, [k for k in due if k in feeder.poses])
+    revs = [k for k in due if k in feeder.poses]
+    drift = kind.drift(feeder.poses, stream, revs) if kind.drift else None
     if drift is not None:
         print(f"local SLAM against the generator's truth over the window's revolutions: "
               f"widest drift {drift:.4f} m from the first (recorded, not compared)",
@@ -171,9 +150,9 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
     # captures hold stays.
     del mb, feeder.builder
     probe.local = None
-    numbers = check.compare(probe, config, stream, missing)
+    numbers = kind.compare(probe, config, stream, missing)
     correct, rows, recorded = check.judge(numbers, cell["limits"])
-    controlled = check.compare(probe, config, stream, missing, control=True) if control else None
+    controlled = kind.compare(probe, config, stream, missing, control=True) if control else None
     result = {"correct": bool(correct), "attempted": len(due), "failed": missing,
               "metrics": metrics, "device": device_info}
     if trace:
@@ -183,10 +162,7 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
         result["control"] = {"correct": ok, **{n: v for n, v, _ in crows}, **crecorded}
     result["stream"] = {"revolutions": len(stream.rev_time), "warmup": warmup,
                         "points_per_revolution": stream.points_per_rev}
-    result["sample"] = {"matches": len(probe.matches), "insertions": len(probe.insertions),
-                        "solves": len(probe.solves),
-                        "upstream": sum(m["upstream"]["batches"] is not None
-                                        for m in probe.matches)}
+    result["sample"] = probe.counts()
     result["recorded"] = recorded
     result["compared"] = {n: {"value": v, "limit": lim} for n, v, lim in rows}
     return result

@@ -1,6 +1,6 @@
-"""The harness on the CPU: the generator, the rate arithmetic, the
-plain SPA reference, finding a cell by its files, and what the
-benchmark's modules import.
+"""The harness on the CPU: the generator, the rate arithmetic, finding a
+cell and its configuration's kind by their files, a 3D kind planted as
+new files alone, and what the benchmark's modules import.
 
     python -m pytest slam_bench/tests -q
 """
@@ -16,7 +16,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from slam_bench import layers, registry, world
+from slam_bench import layers, registry
 
 BENCH = Path(registry.HERE)
 FORBIDDEN = {"jax", "jaxlib", "flax", "cartographer_tpu"}
@@ -26,15 +26,19 @@ def config(name):
     return registry.load_json(BENCH / "configs" / f"{name}.json")
 
 
+def generate(name, revolutions, seed):
+    return registry.harness(config(name)).generate(config(name), revolutions, seed, "cpu")
+
+
 def range_points(stream, k):
     return [p.ranges.points for s, p in stream.events if s != "imu"][k]
 
 
 def test_generator_same_seed_same_stream():
     seed = 2**31 + 5
-    a = world.generate(config("backpack_2d"), 12, seed, "cpu")
-    b = world.generate(config("backpack_2d"), 12, seed, "cpu")
-    c = world.generate(config("backpack_2d"), 12, seed + 1, "cpu")
+    a = generate("backpack_2d", 12, seed)
+    b = generate("backpack_2d", 12, seed)
+    c = generate("backpack_2d", 12, seed + 1)
     assert len(a.events) == len(b.events) == len(c.events)
     assert np.array_equal(a.rev_time, c.rev_time)
     for k in (0, len(a.rev_time) - 1):
@@ -46,7 +50,7 @@ def test_generator_same_seed_same_stream():
 
 
 def test_generator_sensor_shapes():
-    s2 = world.generate(config("backpack_2d"), 4, 3, "cpu")
+    s2 = generate("backpack_2d", 4, 3)
     per_rev = [sum(len(p.ranges.points) for s, p in s2.events[: s2.rev_last_event[0] + 1]
                    if s == "range")]
     assert per_rev[0] <= 1081 and s2.points_per_rev > 1000
@@ -54,7 +58,8 @@ def test_generator_sensor_shapes():
     assert len(subdivisions) == 10
     # The generator's own copy holds what the messages carry.
     sent = [p.ranges.points for s, p in s2.events[: s2.rev_last_event[0] + 1] if s == "range"]
-    kept = world.subdivisions(*(a[0] for a in s2.raw[0]), config("backpack_2d")["range_sensors"][0])
+    planar = registry.harness(config("backpack_2d"))
+    kept = planar.subdivisions(*(a[0] for a in s2.raw[0]), config("backpack_2d")["range_sensors"][0])
     assert all(np.array_equal(p, q) for p, (q, _) in zip(sent, kept))
 
 
@@ -105,8 +110,18 @@ def test_every_cell_and_metric_has_its_files():
     for w in bench["workloads"]:
         spec = registry.workload(w["name"])
         assert spec["cell"]["config"] == w["config"] and spec["cell"]["traffic"] == w["traffic"]
+        kind = registry.harness(spec["config"])
+        assert all(callable(getattr(kind, f)) for f in ("generate", "Probe", "compare"))
+        assert kind.drift is None or callable(kind.drift)
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(registry.reader(m["name"]))
+
+
+def test_the_shared_files_name_no_kind():
+    """What is 2D is reached through harness/planar_2d.py alone."""
+    for name in ("run.py", "drive.py", "check.py", "trace.py"):
+        text = (BENCH / name).read_text()
+        assert "_2d" not in text and "2D" not in text, name
 
 
 def imported_top_levels(path: Path):
@@ -137,3 +152,134 @@ def test_the_reference_imports_nothing_of_the_program():
     out = subprocess.run([sys.executable, "-c", code], cwd=registry.ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+STUB_3D = '''"""A 3D kind planted by the test: a 16-ring cloud in a box room."""
+
+import math
+
+import numpy as np
+import torch
+
+from slam_bench import world
+
+
+def generate(config, num_revolutions, seed, device):
+    from cartographer_tpu_torch.sensor.data import TimedPointCloud, TimedPointCloudData
+
+    hall, sensor = config["world"], config["range_sensors"][0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed % (1 << 63))
+    f64 = dict(dtype=torch.float64, device=device)
+    rev_s = 1.0 / sensor["rate_hz"]
+    lo = torch.tensor([-hall["half_width"] - 5.0, -hall["half_height"] - 5.0, -1.0], **f64)
+    hi = torch.tensor([hall["half_width"] + 5.0, hall["half_height"] + 5.0, 3.0], **f64)
+    azimuths = sensor["azimuths"]
+    az = torch.arange(azimuths, **f64) * (2.0 * math.pi / azimuths)
+    el = torch.deg2rad(torch.linspace(-15.0, 15.0, sensor["rings"], **f64))
+    az, el = (g.reshape(-1) for g in torch.meshgrid(az, el, indexing="ij"))
+    ray_dt = ((torch.arange(azimuths, **f64) + 1.0) / azimuths - 1.0) * rev_s
+    ray_dt = ray_dt.repeat_interleave(sensor["rings"])
+    direction = torch.stack([el.cos() * az.cos(), el.cos() * az.sin(), el.sin()], -1)
+    end = world.START_TIME + (torch.arange(num_revolutions, **f64) + 1.0) * rev_s
+    x, y, yaw, _, _, _ = world.path_state(end[:, None] + ray_dt[None], hall)
+    c, s = yaw.cos()[..., None], yaw.sin()[..., None]
+    dx, dy, dz = direction[..., 0], direction[..., 1], direction[..., 2]
+    d = torch.stack([c[..., 0] * dx - s[..., 0] * dy, s[..., 0] * dx + c[..., 0] * dy,
+                     dz.expand_as(x)], -1)
+    o = torch.stack([x, y, torch.zeros_like(x)], -1)
+    safe = torch.where(d.abs() > 1e-9, d, torch.full_like(d, 1e-9))
+    reach = torch.where(safe > 0, (hi - o) / safe, (lo - o) / safe).min(-1).values
+    reach = reach + sensor["range_noise_m"] * torch.randn(reach.shape, generator=gen, **f64)
+    points = (direction[None] * reach[..., None]).to(torch.float32).cpu().numpy()
+    rel = ray_dt.to(torch.float32).expand(reach.shape).cpu().numpy()
+    msgs = [(float(end[k]), 1, sensor["id"], TimedPointCloudData(
+        time=float(end[k]), origin=np.zeros(3, np.float32),
+        ranges=TimedPointCloud(points=points[k], times=rel[k])), k)
+        for k in range(num_revolutions)]
+    msgs += world.imu_messages(config, num_revolutions, rev_s, gen, device)
+    return world.stream(config, num_revolutions, rev_s, msgs, [(points, rel)])
+
+
+class Probe:
+    def __init__(self, rng, sample, spans):
+        self.recording = False
+        self.spans = []
+        self.local = None
+        self.range_data = 0
+
+    def attach(self, map_builder, trajectory_id):
+        local = map_builder.get_trajectory_builder(trajectory_id)._wrapped._local_trajectory_builder
+        add = local.add_range_data
+
+        def counted(*args, **kwargs):
+            self.range_data += self.recording
+            return add(*args, **kwargs)
+        local.add_range_data = counted
+        self.local = local
+        self.builder = type(local).__name__
+
+    def begin(self):
+        self.recording = True
+
+    def detach(self):
+        pass
+
+    def counts(self):
+        return {"local_builder": self.builder, "range_data": self.range_data}
+
+
+def compare(probe, config, stream, missing, control=False):
+    return {"results_missing": missing}
+
+
+drift = None
+'''
+
+
+def test_a_kind_is_planted_as_new_files(tmp_path):
+    """A 3D configuration whose sensors, probe and checks differ from the
+    planar kind's runs to a result through the 3D MapBuilder from new
+    files alone: its kind, configuration, cell, mix and BENCHMARK.json
+    entry. Every file of the benchmark's that was there keeps its bytes."""
+    from slam_bench import run
+
+    shutil.copytree(BENCH, tmp_path / BENCH.name,
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shutil.copy(registry.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    base = tmp_path / BENCH.name
+    before = {p: p.read_bytes() for p in base.rglob("*") if p.is_file()}
+    config = {
+        "name": "stub_3d", "harness": "stub_3d",
+        "range_sensors": [{"id": "range", "rings": 16, "azimuths": 64, "rate_hz": 10.0,
+                           "range_noise_m": 0.01}],
+        "imu": {"rate_hz": 100.0, "gyro_noise": 0.001, "accel_noise": 0.02},
+        "world": {"half_width": 8.0, "half_height": 6.0, "lap_s": 60.0},
+        "map_builder": {"use_trajectory_builder_2d": False, "use_trajectory_builder_3d": True,
+                        "pose_graph": {"optimize_every_n_nodes": 0,
+                                       "constraint_builder": {"sampling_ratio": 0.0}}},
+        "trajectory_builder": {"trajectory_builder_3d": {
+            "motion_filter": {"max_time_seconds": 0.0},
+            "submaps": {"num_range_data": 2, "high_resolution_grid_size": 128,
+                        "low_resolution_grid_size": 64}}},
+    }
+    (base / "configs" / "stub_3d.json").write_text(json.dumps(config))
+    (base / "harness" / "stub_3d.py").write_text(STUB_3D)
+    (base / "mixes" / "stub_replay.json").write_text(json.dumps({"loop": "closed"}))
+    (base / "cells" / "stub_3d.stub_replay.json").write_text(json.dumps({
+        "config": "stub_3d", "traffic": "stub_replay", "expected_revolutions_per_s": 40.0,
+        "scan_factor": 3, "warmup_until": "two_active_submaps", "warmup_revolutions_max": 20,
+        "sample": {}, "limits": {"results_missing": 0}}))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "stub_3d.stub_replay", "config": "stub_3d",
+                               "traffic": "stub_replay", "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    result = run.measure("stub_3d.stub_replay", 2**31 + 7, 0.5, False, device="cpu",
+                         root=tmp_path)
+    assert result["correct"] is True, result["compared"]
+    assert result["compared"] == {"results_missing": {"value": 0, "limit": 0}}
+    assert result["sample"]["local_builder"] == "LocalTrajectoryBuilder3D"
+    assert result["sample"]["range_data"] >= result["attempted"] > 0  # and the flush's
+    assert set(result["metrics"]) == {"setup_s"}
+    assert all(p.read_bytes() == data for p, data in before.items())

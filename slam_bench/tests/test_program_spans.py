@@ -1,8 +1,9 @@
 """The readers of the program's own spans on a synthetic record: clipped
 to the window and divided by the revolutions completed in it, the feeding
 thread told apart, wall minus CPU time for the off-CPU reader, the idle
-attribution by the innermost open span, and None wherever the program
-recorded no spans or dropped some.
+attribution by the innermost open span, the breakdown's idle gaps named
+by the program's spans (the benchmark's own where none is open), and None
+wherever the program recorded no spans or dropped some.
 
     python -m pytest slam_bench/tests/test_program_spans.py -q
 """
@@ -118,3 +119,25 @@ def test_off_cpu_sums_a_tick_sampled_thread_clock(recorded):
                          span("local_slam.filter", 1002, 1007, cpu_ms=0, parent=0),
                          span("local_slam.filter", 1010, 1015, cpu_ms=10, parent=0)]
     assert read("local_slam_off_cpu_ms_per_scan.replay") == pytest.approx(0.0)
+
+
+def test_idle_gaps_are_named_by_the_program_spans(recorded):
+    from slam_bench.trace import breakdown
+
+    # Idle gaps (ms): 1015-1025 under the feeder's scan match; 1042-1048
+    # with the feeder in no program span and the pool in its lock wait;
+    # 1090-1094 with no program span open, in the benchmark's own
+    # `local_slam` span; 1140-1160 with nothing open at all.
+    events = ((1000, 1015), (1025, 1042), (1048, 1090), (1094, 1140), (1160, 1200))
+    record = {"t0": 1001.0, "t1": 1001.2,
+              "device_events": [("k", "kernel", 1000 + a / 1e3, 1000 + b / 1e3) for a, b in events],
+              "spans": [("facade", 1001.000, 1001.040), ("local_slam", 1001.091, 1001.0935)]}
+    want = [("feeder (no span open)", 0.020), ("local_slam.scan_match", 0.010),
+            ("pose_graph.work_lock_wait", 0.006), ("local_slam", 0.004)]
+    got = breakdown(record)["idle_gaps"]
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert [s for _, s in got] == pytest.approx([s for _, s in want])
+    # Without the program's spans, the benchmark's own name the gaps.
+    recorded["dropped"] = 1
+    assert [n for n, _ in breakdown(record)["idle_gaps"]] == [
+        "feeder (no span open)", "facade", "feeder (no span open)", "local_slam"]

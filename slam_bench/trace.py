@@ -1,10 +1,11 @@
 """The traced run's device side: torch.profiler over the window, read
 into device intervals on the host's `time.perf_counter` clock, and the
-kernels' launch records for the roofline readers.
+kernels' launch records for the roofline readers (the kernels that the
+configuration's kind names, `record_launches` in `harness/<kind>.py`).
 
 The profiler traces CUDA activity only (no host operator events), so its
-cost on the host stays small; the host's side comes from the spans of
-`drive.Probe`.
+cost on the host stays small; the host's side comes from the program's
+own spans and the kind's `Probe`.
 """
 
 from __future__ import annotations
@@ -16,9 +17,13 @@ import torch
 
 
 class DeviceTrace:
-    def __init__(self):
+    def __init__(self, record_launches=None):
+        """`record_launches(launches)`, where given, wraps the kernels
+        whose launches go into `launches` while the trace runs, and
+        returns [(module, name, original)] to restore."""
         self.events: List[tuple] = []  # (name, kind, start, end) perf_counter s
-        self.launches = {"lm_match_2d": [], "supercover_scatter_2d": []}
+        self.launches = {}
+        self._record_launches = record_launches
         self._restore = []
 
     def start(self, device) -> None:
@@ -26,7 +31,8 @@ class DeviceTrace:
         operators, which give no device events)."""
         from torch.profiler import ProfilerActivity, profile
 
-        self._wrap_kernels()
+        if self._record_launches is not None:
+            self._restore = self._record_launches(self.launches)
         cuda = torch.device(device).type == "cuda"
         self._prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
         self._prof.__enter__()
@@ -46,36 +52,6 @@ class DeviceTrace:
             self.events.append((e.name(), kind_of(e.name()), start,
                                 start + e.duration_ns() / 1e9))
         self._prof = None
-
-    def _wrap_kernels(self) -> None:
-        """Record each launch of the 2D LM and scatter kernels (their
-        tensors, and the LM's iterations run through its `iterations`
-        output) for the roofline readers."""
-        from cartographer_tpu_torch.kernels import lm_match_2d, supercover_2d
-
-        lm_launch, scatter = lm_match_2d.launch, supercover_2d.insert_scan
-        names = ("cost_grids", "origins", "initial_poses", "target_translations",
-                 "points", "point_masks")
-        lm_records, scatter_records = self.launches["lm_match_2d"], self.launches["supercover_scatter_2d"]
-
-        def lm_wrapped(*args, **kwargs):
-            if kwargs.get("iterations") is None:
-                k = args[2].shape[0] if args[2].dim() == 2 else 1
-                kwargs["iterations"] = torch.zeros(k, dtype=torch.int32, device=args[0].device)
-            out = lm_launch(*args, **kwargs)
-            rec = dict(zip(names, args[:6]))
-            rec.update({key: v for key, v in kwargs.items() if key != "iterations"})
-            lm_records.append((rec, out, kwargs["iterations"]))
-            return out
-
-        def scatter_wrapped(*args):
-            out = scatter(*args)
-            scatter_records.append(args)
-            return out
-
-        self._restore = [(lm_match_2d, "launch", lm_launch), (supercover_2d, "insert_scan", scatter)]
-        lm_match_2d.launch = lm_wrapped
-        supercover_2d.insert_scan = scatter_wrapped
 
 
 def short_name(name: str) -> str:
@@ -137,20 +113,12 @@ def gaps(intervals, t0: float, t1: float):
     return out
 
 
-def host_activity(spans, t: float) -> str:
-    """What the host was doing at time t: the innermost benchmark span
-    open then (the feeding thread's first, then the backend's)."""
-    order = ("local_slam", "facade", "solve", "drain")
-    open_ = {name for name, a, b in spans if a <= t < b}
-    for name in order:
-        if name in open_:
-            return name
-    return "feeder (no span open)"
-
-
 def breakdown(record) -> dict:
     """The device operations that took most time, and the longest idle
-    gaps by what the host was doing, within the window."""
+    gaps by what the host was doing at each one's middle
+    (`program_spans.host_activity`), within the window."""
+    from slam_bench import program_spans  # which imports this module
+
     t0, t1 = record["t0"], record["t1"]
     by_name = {}
     for name, _, a, b in record["device_events"]:
@@ -160,5 +128,7 @@ def breakdown(record) -> dict:
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     g = gaps([(a, b) for _, _, a, b in record["device_events"]], t0, t1)
     longest = sorted(g, key=lambda ab: ab[0] - ab[1])[:10]
-    idle = [[host_activity(record["spans"], 0.5 * (a + b)), b - a] for a, b in longest]
+    names = program_spans.host_activity(program_spans.program_spans(), record["spans"],
+                                        [0.5 * (a + b) for a, b in longest])
+    idle = [[name, b - a] for name, (a, b) in zip(names, longest)]
     return {"device_ops": [[n, s] for n, s in ops], "idle_gaps": idle}
