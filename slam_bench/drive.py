@@ -19,7 +19,8 @@ import numpy as np
 
 def build(config: dict, device, on_result):
     """MapBuilder and one trajectory from the configuration's options;
-    `on_result(time)` is called from the local SLAM result callback."""
+    `on_result(time, local_pose)` is called from the local SLAM result
+    callback. The default of a kind's `build`."""
     from cartographer_tpu_torch.common.config import MapBuilderOptions, TrajectoryBuilderOptions
     from cartographer_tpu_torch.mapping.map_builder import MapBuilder
 
@@ -71,26 +72,30 @@ class Feeder:
         return k
 
 
-def warm_up(feeder: Feeder, local, max_revolutions: int, until: str) -> int:
-    """Closed-loop feed to local SLAM's steady state: until the trajectory
+def warmed_up(local, until: str) -> bool:
+    """Whether local SLAM has reached its steady state: the trajectory
     holds its two active submaps (`until` = "two_active_submaps") or, in
-    cells whose window sees the pose graph's loop-closure drains, until
-    the first submap has finished as well ("first_finished_submap"), so
-    that the drains against finished submaps run through the whole window
-    and their shapes are warm. Returns the revolutions fed."""
-    def active():
-        return local._active_submaps.submaps()
+    cells whose window sees the pose graph's loop-closure drains, the
+    first submap has finished as well ("first_finished_submap"), so that
+    the drains against finished submaps run through the whole window and
+    their shapes are warm. A finished submap stays active until the next
+    insertion, which a check after every revolution sees. The default of a
+    kind's `warmed_up`."""
+    submaps = local._active_submaps.submaps()
+    finished = any(s.insertion_finished for s in submaps)
+    return len(submaps) >= 2 and (until == "two_active_submaps" or finished)
 
-    finished = False
-    while True:
-        submaps = active()
-        finished = finished or any(s.insertion_finished for s in submaps)
-        if len(submaps) >= 2 and (until == "two_active_submaps" or finished):
-            return feeder.next_rev
+
+def warm_up(feeder: Feeder, local, max_revolutions: int, until: str,
+            steady=warmed_up) -> int:
+    """Closed-loop feed, a revolution at a time, until `steady(local,
+    until)` holds (the kind's `warmed_up`). Returns the revolutions fed."""
+    while not steady(local, until):
         if feeder.next_rev >= max_revolutions:
             raise RuntimeError(
                 f"warm-up fed {feeder.next_rev} revolutions without reaching {until}")
         feeder.feed_revolution()
+    return feeder.next_rev
 
 
 def closed_loop(feeder: Feeder, seconds: float) -> dict:
@@ -105,16 +110,27 @@ def closed_loop(feeder: Feeder, seconds: float) -> dict:
     return {"t0": t0, "t1": end, "due": fed}
 
 
-def flush(feeder: Feeder, revolutions: List[int], max_extra: int = 8) -> None:
+def drain(map_builder, trajectory_id: int) -> None:
+    """The default of a kind's `drain`: nothing, since the per-scan
+    builders hold no revolution back once its next messages are in."""
+
+
+def flush(feeder: Feeder, revolutions: List[int], drain_held=lambda: None,
+          max_extra: int = 8) -> None:
     """Feed up to `max_extra` more revolutions until every one of
     `revolutions` has its result (a result can wait on the next IMU
-    message in the collator)."""
+    message in the collator); where some still has none, call
+    `drain_held()` (the kind's `drain`), which hands over what the local
+    builder holds back."""
+    def pending():
+        return any(np.isnan(feeder.done[k]) for k in revolutions)
+
     for _ in range(max_extra):
-        if all(not np.isnan(feeder.done[k]) for k in revolutions):
-            return
-        if feeder.next_rev >= len(feeder.stream.rev_last_event):
-            return
+        if not pending() or feeder.next_rev >= len(feeder.stream.rev_last_event):
+            break
         feeder.feed_revolution()
+    if pending():
+        drain_held()
 
 
 def settle(map_builder, timeout_s: float = 120.0) -> None:

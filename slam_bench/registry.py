@@ -30,6 +30,27 @@ reference; `run.measure` calls it wherever a run needs them:
 - optionally `record_launches(launches) -> [(module, name, original)]`:
   wraps the kernels whose launches its roofline readers read, while the
   traced run's `trace.DeviceTrace` runs.
+
+Three more parts are optional; where a kind leaves one out, `run.measure`
+takes the function of the same name in `drive.py`, which is what every
+run did before a kind could bring its own:
+
+- `build(config, device, on_result) -> (map_builder, trajectory_id)`,
+  once, before the probe attaches: the `MapBuilder` and the trajectory the
+  window drives, with `on_result(time, local_pose)` as its local SLAM
+  result callback. `drive.build`: an empty `MapBuilder` and one
+  trajectory from the configuration's options. A kind may load a frozen
+  state first, or add other trajectories.
+- `warmed_up(local, until) -> bool`, before the window, after each
+  revolution that `drive.warm_up` feeds (and before the first): whether
+  the probe's `local` builder has reached the cell's `warmup_until`.
+  `drive.warmed_up`: the per-scan builders' `_active_submaps`.
+- `drain(map_builder, trajectory_id)`, after the window, once, where
+  `drive.flush`'s extra revolutions leave some revolution due in the
+  window without its result; `drive.settle` then waits for the pose
+  graph's drain in flight. `drive.drain` does nothing; a builder that
+  holds scans back (a chunk not yet full) hands them over here, as
+  `MapBuilder.finish_trajectory` does at a bag's end.
 """
 
 from __future__ import annotations

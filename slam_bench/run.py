@@ -90,14 +90,17 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
 
     probe = kind.Probe(np.random.default_rng([seed, 1]), cell["sample"], spans=trace)
     feeder = drive.Feeder(stream, None)
-    mb, tid = drive.build(config, device, feeder.on_result)
+    build, warmed_up, drain = (getattr(kind, part, getattr(drive, part))
+                               for part in ("build", "warmed_up", "drain"))
+    mb, tid = build(config, device, feeder.on_result)
     feeder.builder = mb.get_trajectory_builder(tid)
     probe.attach(mb, tid)
     if torch.device(device).type == "cuda":
         from cartographer_tpu_torch.kernels import _build
 
         _build.build_all()
-    warmup = drive.warm_up(feeder, probe.local, cell["warmup_revolutions_max"], cell["warmup_until"])
+    warmup = drive.warm_up(feeder, probe.local, cell["warmup_revolutions_max"],
+                           cell["warmup_until"], warmed_up)
     if plant is not None:
         plant(probe)
     if torch.device(device).type == "cuda":
@@ -109,7 +112,7 @@ def measure(name: str, seed: int, seconds: float, trace: bool, device: str = "cu
     probe.begin()
     t_window = time.perf_counter()
     window = drive.closed_loop(feeder, seconds)
-    drive.flush(feeder, window["due"])
+    drive.flush(feeder, window["due"], lambda: drain(mb, tid))
     probe.recording = False
     drive.settle(mb)
     if dtrace is not None:

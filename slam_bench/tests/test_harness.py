@@ -1,6 +1,8 @@
 """The harness on the CPU: the generator, the rate arithmetic, finding a
-cell and its configuration's kind by their files, a 3D kind planted as
-new files alone, and what the benchmark's modules import.
+cell and its configuration's kind by their files, kinds planted as new
+files alone (a 3D one; one on the chunked 2D frontend, whose `drain`
+hands over the scans its last chunk holds; one whose `build` loads a
+frozen map first), and what the benchmark's modules import.
 
     python -m pytest slam_bench/tests -q
 """
@@ -11,6 +13,7 @@ import math
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -154,7 +157,7 @@ def test_the_reference_imports_nothing_of_the_program():
     assert out.stdout.strip() == "[]"
 
 
-STUB_3D = '''"""A 3D kind planted by the test: a 16-ring cloud in a box room."""
+STUB_3D_STREAM = '''"""A 3D kind planted by the test: a 16-ring cloud in a box room."""
 
 import math
 
@@ -200,8 +203,14 @@ def generate(config, num_revolutions, seed, device):
     msgs += world.imu_messages(config, num_revolutions, rev_s, gen, device)
     return world.stream(config, num_revolutions, rev_s, msgs, [(points, rel)])
 
+'''
+
+COUNTING_PROBE = '''
 
 class Probe:
+    """Counts the window's range data on the local builder, names its
+    class, and lists the trajectories that the pose graph holds frozen."""
+
     def __init__(self, rng, sample, spans):
         self.recording = False
         self.spans = []
@@ -218,6 +227,8 @@ class Probe:
         local.add_range_data = counted
         self.local = local
         self.builder = type(local).__name__
+        self.frozen = [t for t in range(trajectory_id)
+                       if map_builder.pose_graph.is_trajectory_frozen(t)]
 
     def begin(self):
         self.recording = True
@@ -226,7 +237,8 @@ class Probe:
         pass
 
     def counts(self):
-        return {"local_builder": self.builder, "range_data": self.range_data}
+        return {"local_builder": self.builder, "range_data": self.range_data,
+                "frozen": self.frozen}
 
 
 def compare(probe, config, stream, missing, control=False):
@@ -235,6 +247,33 @@ def compare(probe, config, stream, missing, control=False):
 
 drift = None
 '''
+STUB_3D = STUB_3D_STREAM + COUNTING_PROBE
+
+
+def plant(root, kind, kind_text, config, cell):
+    """A checkout at `root` with a kind, its configuration, a cell of it
+    and a closed-loop mix added as new files, and the cell's entry in
+    BENCHMARK.json; returns the cell's name and the bytes of every
+    benchmark file that was there before."""
+    shutil.copytree(BENCH, root / BENCH.name,
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shutil.copy(registry.ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    base = root / BENCH.name
+    before = {p: p.read_bytes() for p in base.rglob("*") if p.is_file()}
+    name = config["name"]
+    config = {**config, "harness": kind}
+    (base / "configs" / f"{name}.json").write_text(json.dumps(config))
+    (base / "harness" / f"{kind}.py").write_text(kind_text)
+    (base / "mixes" / "stub_replay.json").write_text(json.dumps({"loop": "closed"}))
+    (base / "cells" / f"{name}.stub_replay.json").write_text(json.dumps({
+        "config": name, "traffic": "stub_replay", "expected_revolutions_per_s": 40.0,
+        "scan_factor": 3, "warmup_until": "two_active_submaps", "sample": {},
+        "limits": {"results_missing": 0}, **cell}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": f"{name}.stub_replay", "config": name,
+                               "traffic": "stub_replay", "chips": 1, "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return f"{name}.stub_replay", before
 
 
 def test_a_kind_is_planted_as_new_files(tmp_path):
@@ -244,13 +283,8 @@ def test_a_kind_is_planted_as_new_files(tmp_path):
     entry. Every file of the benchmark's that was there keeps its bytes."""
     from slam_bench import run
 
-    shutil.copytree(BENCH, tmp_path / BENCH.name,
-                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    shutil.copy(registry.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    base = tmp_path / BENCH.name
-    before = {p: p.read_bytes() for p in base.rglob("*") if p.is_file()}
     config = {
-        "name": "stub_3d", "harness": "stub_3d",
+        "name": "stub_3d",
         "range_sensors": [{"id": "range", "rings": 16, "azimuths": 64, "rate_hz": 10.0,
                            "range_noise_m": 0.01}],
         "imu": {"rate_hz": 100.0, "gyro_noise": 0.001, "accel_noise": 0.02},
@@ -263,23 +297,136 @@ def test_a_kind_is_planted_as_new_files(tmp_path):
             "submaps": {"num_range_data": 2, "high_resolution_grid_size": 128,
                         "low_resolution_grid_size": 64}}},
     }
-    (base / "configs" / "stub_3d.json").write_text(json.dumps(config))
-    (base / "harness" / "stub_3d.py").write_text(STUB_3D)
-    (base / "mixes" / "stub_replay.json").write_text(json.dumps({"loop": "closed"}))
-    (base / "cells" / "stub_3d.stub_replay.json").write_text(json.dumps({
-        "config": "stub_3d", "traffic": "stub_replay", "expected_revolutions_per_s": 40.0,
-        "scan_factor": 3, "warmup_until": "two_active_submaps", "warmup_revolutions_max": 20,
-        "sample": {}, "limits": {"results_missing": 0}}))
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": "stub_3d.stub_replay", "config": "stub_3d",
-                               "traffic": "stub_replay", "chips": 1, "why": "test"})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell, before = plant(tmp_path, "stub_3d", STUB_3D, config, {"warmup_revolutions_max": 20})
 
-    result = run.measure("stub_3d.stub_replay", 2**31 + 7, 0.5, False, device="cpu",
-                         root=tmp_path)
+    result = run.measure(cell, 2**31 + 7, 0.5, False, device="cpu", root=tmp_path)
     assert result["correct"] is True, result["compared"]
     assert result["compared"] == {"results_missing": {"value": 0, "limit": 0}}
     assert result["sample"]["local_builder"] == "LocalTrajectoryBuilder3D"
     assert result["sample"]["range_data"] >= result["attempted"] > 0  # and the flush's
     assert set(result["metrics"]) == {"setup_s"}
     assert all(p.read_bytes() == data for p, data in before.items())
+
+
+def small_planar(name):
+    """backpack_2d at a size a CPU test holds: 256 x 256 grids, submaps of
+    4 range data, every range data inserted, no loop-closure search and
+    no optimization."""
+    c = json.loads(json.dumps(config("backpack_2d")))
+    c["name"] = name
+    c["map_builder"]["pose_graph"]["optimize_every_n_nodes"] = 0
+    c["map_builder"]["pose_graph"]["constraint_builder"]["sampling_ratio"] = 0.0
+    tb2d = c["trajectory_builder"]["trajectory_builder_2d"]
+    tb2d["submaps"]["num_range_data"] = 4
+    tb2d["submaps"]["grid_options_2d"]["grid_size"] = 256
+    tb2d["motion_filter"]["max_time_seconds"] = 0.0
+    return c
+
+
+STUB_CHUNKED = '''"""A kind planted by the test: the planar stream in one subdivision, on
+the chunked 2D frontend, which holds scans until its chunk is full."""
+
+from pathlib import Path
+
+from slam_bench import registry
+
+generate = registry.harness({}, Path(__file__).resolve().parents[2]).generate
+
+
+def warmed_up(local, until):
+    submaps = local._submaps
+    finished = any(s.insertion_finished for s in submaps)
+    return len(submaps) >= 2 and (until == "two_active_submaps" or finished)
+'''
+
+DRAIN_BY_FINISHING = '''
+
+def drain(map_builder, trajectory_id):
+    map_builder.finish_trajectory(trajectory_id)
+'''
+
+WINDOW_REVOLUTIONS = 20
+
+
+@pytest.mark.parametrize("with_drain", [True, False], ids=["drain", "no_drain"])
+def test_a_chunked_kind_drains_its_last_chunk(tmp_path, monkeypatch, with_drain):
+    """On the chunked 2D frontend (chunks of 32 scans) a window of 20
+    revolutions, with the flush's 8 more, ends inside a chunk: the kind's
+    `drain` finishes the trajectory and every due revolution has its
+    result; without `drain` the chunk's held scans come out missing."""
+    from slam_bench import drive, run
+
+    config = small_planar("stub_chunked_2d")
+    config["range_sensors"][0]["subdivisions"] = 1
+    config["trajectory_builder"]["use_chunked_device_frontend"] = True
+    config["trajectory_builder"]["device_frontend_chunk_size"] = 32
+    config["trajectory_builder"]["trajectory_builder_2d"]["num_accumulated_range_data"] = 1
+    text = STUB_CHUNKED + (DRAIN_BY_FINISHING if with_drain else "") + COUNTING_PROBE
+    cell, _ = plant(tmp_path, "stub_chunked_2d", text, config, {"warmup_revolutions_max": 80})
+
+    def fixed_window(feeder, seconds):
+        t0 = time.perf_counter()
+        first = feeder.next_rev
+        for _ in range(WINDOW_REVOLUTIONS):
+            feeder.feed_revolution()
+        return {"t0": t0, "t1": time.perf_counter(), "due": list(range(first, feeder.next_rev))}
+
+    monkeypatch.setattr(drive, "closed_loop", fixed_window)
+    result = run.measure(cell, 2**31 + 13, 0.5, False, device="cpu", root=tmp_path)
+    assert result["sample"]["local_builder"] == "ChunkedLocalTrajectoryBuilder2D"
+    assert result["attempted"] == WINDOW_REVOLUTIONS
+    missing = result["compared"]["results_missing"]["value"]
+    if with_drain:
+        assert result["correct"] is True and missing == 0, result["compared"]
+    else:
+        assert result["correct"] is False and missing > 0, result["compared"]
+
+
+STUB_FROZEN_MAP = '''"""A kind planted by the test: the planar kind's stream on the per-scan 2D
+builder, driven in a MapBuilder that first loads a frozen map."""
+
+from pathlib import Path
+
+from slam_bench import drive, registry
+
+generate = registry.harness({}, Path(__file__).resolve().parents[2]).generate
+
+
+def build(config, device, on_result):
+    """Map the configuration's `map_revolutions` in one MapBuilder, load
+    its state frozen into a fresh one, and only then add the trajectory
+    the window drives."""
+    from cartographer_tpu_torch.common.config import MapBuilderOptions, TrajectoryBuilderOptions
+    from cartographer_tpu_torch.mapping.map_builder import MapBuilder
+
+    mapper, mapped = drive.build(config, device, lambda t, pose: None)
+    builder = mapper.get_trajectory_builder(mapped)
+    for sensor_id, payload in generate(config, config["map_revolutions"], 0, device).events:
+        builder.add_sensor_data(sensor_id, payload)
+    mapper.finish_trajectory(mapped)
+    state = mapper.serialize_state()
+    mapper.shutdown()
+
+    mb = MapBuilder(MapBuilderOptions.from_dict(config["map_builder"]), device=device)
+    mb.load_state(state, load_frozen_state=True)
+    sensors = {s["id"] for s in config["range_sensors"]} | {"imu"}
+    trajectory = TrajectoryBuilderOptions.from_dict(config["trajectory_builder"])
+    tid = mb.add_trajectory_builder(
+        sensors, trajectory, lambda _, t, local_pose, *rest: on_result(t, local_pose))
+    return mb, tid
+'''
+
+
+def test_a_kind_builds_on_a_frozen_map(tmp_path):
+    """A kind's `build` loads a mapped state frozen before it adds the
+    trajectory the window drives; the run reaches its result."""
+    from slam_bench import run
+
+    config = {**small_planar("stub_frozen_2d"), "map_revolutions": 12}
+    cell, _ = plant(tmp_path, "stub_frozen_2d", STUB_FROZEN_MAP + COUNTING_PROBE, config,
+                    {"warmup_revolutions_max": 20})
+    result = run.measure(cell, 2**31 + 17, 0.5, False, device="cpu", root=tmp_path)
+    assert result["sample"]["frozen"] == [0]
+    assert result["sample"]["local_builder"] == "LocalTrajectoryBuilder2D"
+    assert result["correct"] is True, result["compared"]
+    assert result["attempted"] > 0
