@@ -173,6 +173,7 @@ def _register_all() -> None:
     global optimization_runs, beam_overflow_retries
     global sharded_constraint_batches, sharded_spa_solves
     global pose_graph_work_queue_size, pose_graph_work_queue_delay
+    global spa_lm_iterations, spa_cg_steps
     local_slam_latency = _factory.gauge("mapping_2d_local_trajectory_builder_latency")
     local_slam_real_time_ratio = _factory.gauge(
         "mapping_2d_local_trajectory_builder_real_time_ratio"
@@ -209,6 +210,10 @@ def _register_all() -> None:
         "mapping_constraint_builder_constraints_searched"
     )
     optimization_runs = _factory.counter("mapping_pose_graph_optimizations")
+    # The last 2D SPA solve's Levenberg-Marquardt iterations and its CG
+    # steps summed over them (ops/spa_solver.solve, kernel or plain path).
+    spa_lm_iterations = _factory.gauge("mapping_pose_graph_spa_lm_iterations")
+    spa_cg_steps = _factory.gauge("mapping_pose_graph_spa_cg_steps")
     # BnB searches whose per-level survivor set exceeded the beam cap (the
     # search is exact only while the cap does not bind; such searches are
     # re-run with a widened beam).

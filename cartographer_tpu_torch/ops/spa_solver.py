@@ -21,8 +21,15 @@ through three closed-form lines (`_spa_error`), so each row carries two
 [S + N + L + T, 3] table. One host synchronisation per LM iteration reads
 the stop flag; CG runs its `cg_iterations` steps with the carry frozen
 once converged, as the port's `gauss_newton_2d.match` does.
-`index_add_` on CUDA is not deterministic, so a solve on the card agrees
-with one on the CPU within a tolerance, not bit for bit.
+
+`solve` runs CUDA tensors without a mesh through the hand-written kernel
+`kernels/spa_2d` (`csrc/spa_2d.cu`): one launch an LM iteration, the same
+arithmetic, CG stopped where the plain loop freezes. `solve_plain`, the
+eager version, runs CPU tensors and every solve with a mesh. Both set the
+gauges `metrics.spa_lm_iterations` and `metrics.spa_cg_steps`. The
+kernel's atomics and `index_add_` on CUDA are not deterministic, so a
+solve on the card agrees with one on the CPU within a tolerance, not bit
+for bit.
 
 With a `mesh` (parallel/partition.Mesh) the residual tables are this
 rank's rows and the pose tables are replicated: every sum over residual
@@ -40,6 +47,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from cartographer_tpu_torch import metrics
+from cartographer_tpu_torch.kernels import spa_2d
 from cartographer_tpu_torch.ops.scan_matching.gauss_newton_2d import (
     nonmonotonic_accepted,
     nonmonotonic_init,
@@ -347,7 +356,38 @@ def solve(
     """Returns (submap_poses, node_poses, final_cost) — plus, when `extras`
     is given, landmark poses and fixed-frame poses before the cost — on
     the problem's device. With `mesh`, `p` and `extras` hold this rank's
-    residual rows (parallel/sharded.shard_spa_problem)."""
+    residual rows (parallel/sharded.shard_spa_problem). CUDA tensors
+    without a mesh run the kernel (kernels/spa_2d), all else
+    `solve_plain`."""
+    if mesh is None and p.submap_poses.is_cuda:
+        out, info = spa_2d.solve(
+            p, extras, huber_scale, max_iterations, cg_iterations,
+            use_nonmonotonic_steps,
+        )
+        _record(info["iterations"], info["cg_steps"])
+        return out
+    return solve_plain(
+        p, huber_scale, max_iterations, cg_iterations, extras,
+        use_nonmonotonic_steps, mesh,
+    )
+
+
+def _record(iterations, cg_steps):
+    metrics.spa_lm_iterations.set(iterations)
+    metrics.spa_cg_steps.set(cg_steps)
+
+
+def solve_plain(
+    p: SpaProblem,
+    huber_scale: float,
+    max_iterations: int = 50,
+    cg_iterations: int = 64,
+    extras: Optional[SpaExtras] = None,
+    use_nonmonotonic_steps: bool = False,
+    mesh=None,
+):
+    """`solve` as eager PyTorch on any device: the CPU's path, the mesh's,
+    and the kernel's yardstick on the card."""
     layout = _Layout(p, extras)
     free = layout.free
     dev = free.device
@@ -357,7 +397,10 @@ def solve(
     radius = torch.full((), 1e4, **f32)
     decrease_factor = torch.full((), 2.0, **f32)
     ev = nonmonotonic_init(cost)
+    cg_steps = torch.zeros((), dtype=torch.int64, device=dev)
+    iterations = 0
     for _ in range(max_iterations):
+        iterations += 1
         r0, blocks, diag = _linearize(layout, x, huber_scale, mesh)
         # Ceres LM damping: D^T D / radius with D = clamped sqrt(diag).
         damp = torch.clamp(diag, _MIN_DIAGONAL, _MAX_DIAGONAL) / radius
@@ -370,7 +413,7 @@ def solve(
             return jtv + damp * pv_ + (v - pv_)
 
         pre = torch.where(free > 0, diag + damp, torch.ones_like(diag))
-        dx = _cg(hvp, -grad, pre, cg_iterations) * free
+        dx = _cg(hvp, -grad, pre, cg_iterations, cg_steps) * free
         new_x = x + dx
         new_cost = _cost(_residuals(layout, new_x, huber_scale), mesh)
         # Ceres step quality: model cost change from r0 + J dx.
@@ -401,14 +444,16 @@ def solve(
         if bool(converged):  # the one host synchronisation per iteration
             break
     x = torch.cat([x[:, :2], _normalize_angle(x[:, 2:3])], dim=1)
+    _record(iterations, int(cg_steps))
     return tuple(layout.split(x)) + (cost,)
 
 
-def _cg(apply_a, b, pre, maxiter):
+def _cg(apply_a, b, pre, maxiter, steps=None):
     """jax.scipy.sparse.linalg.cg (x0 = 0, tol = 1e-6, atol = 0, Jacobi
     preconditioner `pre`): stops once ||r||^2 <= tol^2 ||b||^2; here the
     carry freezes instead, so the loop runs `maxiter` steps without a
-    host synchronisation."""
+    host synchronisation. `steps`, a 0-d integer tensor when given, counts
+    the steps taken before the stop in place."""
     atol2 = _CG_TOL * _CG_TOL * torch.sum(b * b)
     x = torch.zeros_like(b)
     r = b
@@ -417,6 +462,8 @@ def _cg(apply_a, b, pre, maxiter):
     gamma = torch.sum(r * z)
     for _ in range(maxiter):
         active = torch.sum(r * r) > atol2
+        if steps is not None:
+            steps += active
         ap = apply_a(p)
         alpha = gamma / torch.sum(p * ap)
         x = torch.where(active, x + alpha * p, x)

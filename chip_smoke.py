@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --refine-study SECONDS
+    python3 chip_smoke.py --spa-2d
 
-The second form runs only the backend phase and then `refine_study`:
+The third form runs only the device, build and spa_2d phases. The second
+runs only the backend phase and then `refine_study`:
 the backend drain's card-against-CPU replay on perturbed searches, each
 round's drain refinement also held at 1e-4 three ways (the LM kernel
 against the plain version on the card and on the CPU, the plain version
@@ -36,6 +38,20 @@ exits non-zero:
    function must move (for the LM the distinct grid sectors that its
    patches cover along the accepted poses) and the operations counted
    from the sources.
+   spa_2d: the 2D SPA kernel (kernels/spa_2d) against the plain solve
+   (ops/spa_solver.solve_plain) on the card, on testing/spa_cases_2d's
+   problems: three loop graphs (nonmonotonic; a landmark and a fixed
+   frame), a graph the benchmark cell's size (1,120 nodes, 17 submaps,
+   3,000 constraints, one frozen trajectory) at 50 and at 200
+   iterations, and one of 5,120 nodes.
+   Per solve: one launch an LM iteration; the first two iterations (4 CG
+   steps each) with the plain solve's counts and poses within 1e-5; a
+   solve that converges
+   with poses within 1e-3 m / rad, cost within rel 1e-3 and stopping
+   before the cap where the plain one does (the card tests' rules); device
+   time (torch.profiler), host wall time, launches, LM iterations and CG
+   steps of both, and the bound of a CG step from its bytes and
+   operations.
 4. slice: the chunked 2D local-SLAM frontend
    (ChunkedLocalTrajectoryBuilder2D on cuda) over the first 200 of the
    synthetic loop world's 300 scans, with online correlative matching
@@ -770,6 +786,152 @@ def kernel_phase_2d(device):
         "edge_no_free_space": scatter("edge_no_free_space", 64, 300, 400, 400.0, 512,
                                       free=False, edge=True),
     }
+    return out
+
+
+SPA_HUBER_SCALE = 10.0
+# A CG step reads each row's two 3 x 3 blocks and three indices once (84
+# bytes) and each pose's p, diagonal, r, x and free flag (52 bytes), and
+# writes its x, r and p (36 bytes); u = J_row p and J_row^T u take 72
+# flops each a row, the vector updates about 20 a pose coordinate.
+SPA_STEP_BYTES_PER_ROW = 84
+SPA_STEP_BYTES_PER_POSE = 88
+SPA_STEP_OPS_PER_ROW = 144
+SPA_STEP_OPS_PER_POSE = 60
+
+
+def spa_cases():
+    """The spa_2d phase's problems: (numpy tables, extras tables, solve
+    keywords, whether the whole solve is held to the plain one) by name.
+    The cell's graph at 50 iterations has not converged, and two f32
+    solves in different sum orders part by up to 7e-3 m there: it and the
+    5,120-node graph are held by their first two iterations only (the
+    card tests' rules, tests/test_torch_spa_2d_card.py)."""
+    from cartographer_tpu_torch.testing import spa_cases_2d as cases
+
+    cell, _ = cases.trajectory_graph(3)
+    large, _ = cases.trajectory_graph(4, num_nodes=5000, inter=4000, outliers=100)
+    return {
+        "loop": (*cases.loop_graph(0), dict(max_iterations=100), True),
+        "loop_nonmonotonic": (*cases.loop_graph(1),
+                              dict(max_iterations=100, use_nonmonotonic_steps=True), True),
+        "landmark_fixed_frame": (*cases.loop_graph(2, extras="held"),
+                                 dict(max_iterations=100), True),
+        "main": (cell, None, dict(max_iterations=50), False),
+        "final_200": (cell, None, dict(max_iterations=200), True),
+        "large": (large, None, dict(max_iterations=50), False),
+    }
+
+
+def spa_gap(got, want):
+    """Largest pose difference of two solves' results, m or rad."""
+    gap = 0.0
+    for g, w in zip(got[:-1], want[:-1]):
+        g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+        d = np.abs((g[:, 2] - w[:, 2] + np.pi) % (2 * np.pi) - np.pi)
+        gap = max(gap, float(np.max(np.abs(g[:, :2] - w[:, :2]), initial=0.0)),
+                  float(np.max(d, initial=0.0)))
+    return gap
+
+
+def spa_solve_case(name, tables, ex, kw, whole, device, gauges):
+    """One problem through the kernel and through the plain solve on the
+    card: times and counts of both; the failures against the card tests'
+    tolerances (tests/test_torch_spa_2d_card.py)."""
+    import torch
+
+    from cartographer_tpu_torch.kernels import spa_2d
+    from cartographer_tpu_torch.ops import spa_solver
+
+    p = spa_solver.problem_from_numpy(tables, device)
+    x = None if ex is None else spa_solver.extras_from_numpy(ex, device)
+
+    def kernel(**over):
+        return spa_solver.solve(p, SPA_HUBER_SCALE, extras=x, **{**kw, **over})
+
+    def plain(**over):
+        return spa_solver.solve_plain(p, SPA_HUBER_SCALE, extras=x, **{**kw, **over})
+
+    r = {"phase": "spa_2d", "case": name, "poses": sum(t.shape[0] for t in (
+        p.submap_poses, p.node_poses, *(() if x is None else (x.l_poses, x.f_pose)))),
+        "rows": int(p.c_mask.sum()) + int(p.n_mask.sum()) + (
+            0 if x is None else int(x.o_mask.sum()) + int(x.g_mask.sum())),
+        **kw}
+    failed = []
+    # The first two iterations of 4 CG steps: the plain solve's steps.
+    two, two_counts = kernel(max_iterations=2, cg_iterations=4), gauges()
+    r["two_iterations_gap"] = spa_gap(two, plain(max_iterations=2, cg_iterations=4))
+    if r["two_iterations_gap"] > 1e-5 or two_counts != gauges():
+        failed.append(f"two iterations part by {r['two_iterations_gap']:.2e} "
+                      f"(counts {two_counts}, {gauges()})")
+    torch.cuda.synchronize()
+    before = spa_2d.LAUNCHES
+    t0 = time.perf_counter()
+    got = kernel()
+    torch.cuda.synchronize()
+    r["kernel_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    r["launches"] = spa_2d.LAUNCHES - before
+    r["lm_iterations"], r["cg_steps"] = gauges()
+    prof = device_profile(kernel, 1)
+    r["kernel_device_ms"] = prof["device_busy_ms"]
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    r["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    r["plain_lm_iterations"], r["plain_cg_steps"] = gauges()
+    prof = device_profile(plain, 1)
+    r["plain_device_ms"] = prof["device_busy_ms"]
+    r["plain_kernels"] = prof["kernels"]
+    r["max_abs_err"] = spa_gap(got, want)
+    r["cost"], r["plain_cost"] = float(got[-1]), float(want[-1])
+    step_bytes = SPA_STEP_BYTES_PER_ROW * r["rows"] + SPA_STEP_BYTES_PER_POSE * r["poses"]
+    step_ops = SPA_STEP_OPS_PER_ROW * r["rows"] + SPA_STEP_OPS_PER_POSE * r["poses"]
+    step = {}
+    bound(step, step_bytes, step_ops)
+    r["cg_step_bound_us"] = step["bound_ms"] * 1e3
+    r["cg_step_bound_by"] = step["bound_by"]
+    r["kernel_us_per_cg_step"] = r["kernel_device_ms"] * 1e3 / max(r["cg_steps"], 1)
+    # The kernel table's units: one launch (an LM iteration).
+    its = max(r["lm_iterations"], 1)
+    r["kernel_ms"] = r["kernel_device_ms"] / max(r["launches"], 1)
+    r["plain_ms"] = r["plain_device_ms"] / max(r["plain_lm_iterations"], 1)
+    r["bound_ms"] = step["bound_ms"] * r["cg_steps"] / its
+    r["bound_by"] = step["bound_by"]
+    emit(r)
+    if r["launches"] != r["lm_iterations"]:
+        failed.append(f"{r['launches']} launches for {r['lm_iterations']} iterations")
+    if whole:
+        cap = kw["max_iterations"]
+        if (r["lm_iterations"] < cap) != (r["plain_lm_iterations"] < cap):
+            failed.append(f"{r['lm_iterations']} LM iterations against "
+                          f"{r['plain_lm_iterations']} (one stopped at the cap)")
+        if r["max_abs_err"] > 1e-3:
+            failed.append(f"poses part by {r['max_abs_err']:.2e}")
+        if abs(r["cost"] - r["plain_cost"]) > 1e-3 * max(abs(r["plain_cost"]), 1e-6):
+            failed.append(f"costs {r['cost']} and {r['plain_cost']}")
+    return r, failed
+
+
+def spa_2d_phase(device):
+    """The 2D SPA kernel against the plain solve on the card (module
+    docstring, phase 3); raises after every case ran if one failed."""
+    from cartographer_tpu_torch import metrics
+
+    registry = metrics.enable_collection().registry()
+
+    def gauges():
+        return (int(registry["mapping_pose_graph_spa_lm_iterations"].value()),
+                int(registry["mapping_pose_graph_spa_cg_steps"].value()))
+
+    out, failed = {}, []
+    try:
+        for name, (tables, ex, kw, whole) in spa_cases().items():
+            out[name], why = spa_solve_case(name, tables, ex, kw, whole, device, gauges)
+            failed += [f"{name}: {w}" for w in why]
+    finally:
+        metrics.register_family_factory(metrics.FamilyFactory())
+    if failed:
+        raise AssertionError("spa_2d: " + "; ".join(failed))
     return out
 
 
@@ -1597,6 +1759,7 @@ def backend_phase(device, smi):
         raise AssertionError("no device BnB search")
     for name in ("correlative_window", "lm_match_2d", "supercover_dense_2d"):
         require_launches(launches, name, len(errs_all), "nodes")
+    require_launches(launches, "spa_2d", len(pg.solve_seconds), "SPA solves")
     if errs.max() > 0.3:
         raise AssertionError(
             f"max node error {errs.max():.3f} m > 0.3 m (relative to node {STARTUP_NODES})"
@@ -2215,7 +2378,7 @@ def run_3d_path(make_builder, events, num_scans, true_position, device):
         metrics.register_family_factory(metrics.FamilyFactory())
     if not results:
         raise AssertionError("no 3D scan was matched")
-    require_none(launches, ["correlative_window", *NEW_2D_KERNELS], "a 3D path")
+    require_none(launches, ["correlative_window", *NEW_2D_KERNELS, "spa_2d"], "a 3D path")
     final_err, max_err = position_errors_3d(results, true_position)
     if dropped:
         raise AssertionError(f"{dropped} grid writes dropped on the 3D path")
@@ -2425,7 +2588,7 @@ def map_builder_3d_part(device):
         raise AssertionError("the 3D constraint builder ran no loop-closure search")
     if len(pg.solve_seconds) < 3:
         raise AssertionError(f"only {len(pg.solve_seconds)} SPA solves")
-    require_none(launches, ["correlative_window", *NEW_2D_KERNELS], "the 3D backend")
+    require_none(launches, ["correlative_window", *NEW_2D_KERNELS, "spa_2d"], "the 3D backend")
     line = {
         "scans": num_scans,
         "nodes": len(nodes),
@@ -3545,7 +3708,7 @@ def multigpu_phase(device, smi):
                                  "nodes")
                 require_none(st["launches"], ["supercover_dense_2d"], "the per-scan path")
             elif on_card:
-                require_none(st["launches"], ["correlative_window", *NEW_2D_KERNELS],
+                require_none(st["launches"], ["correlative_window", *NEW_2D_KERNELS, "spa_2d"],
                              "the 3D drain")
         if abs(stats[0]["pose_digest"] - stats[1]["pose_digest"]) > 1e-6:
             raise AssertionError(f"ranks disagree on {name}: "
@@ -3604,6 +3767,11 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
+    if "--spa-2d" in sys.argv:
+        timed("spa_2d", spa_2d_phase, device)
+        emit({"phase": "seconds", **seconds, "card": smi})
+        return 0
+
     if "--refine-study" in sys.argv:
         study_s = float(sys.argv[sys.argv.index("--refine-study") + 1])
         _, saved_2d = backend_phase(device, smi)
@@ -3612,6 +3780,7 @@ def main() -> int:
 
     kernels = timed("kernel", kernel_phase, device)
     cases = {"correlative_window": kernels, **timed("kernel_2d", kernel_phase_2d, device)}
+    cases["spa_2d"] = timed("spa_2d", spa_2d_phase, device)
     sl, real = timed("slice", slice_phase, device, smi)
     kernels["real"] = kernel_case("real", real["correlative_window"])
     cases["lm_match_2d"]["real"] = lm_case("real", real["lm_match_2d"])
@@ -3658,6 +3827,7 @@ def main() -> int:
                         "cartographer_tpu/ops/scan_matching/gauss_newton_2d.py:498"),
         "supercover_dense_2d": ("supercover_2d.cu", "cartographer_tpu/ops/raycast_2d.py:192"),
         "supercover_scatter_2d": ("supercover_2d.cu", "cartographer_tpu/ops/raycast_2d.py:32"),
+        "spa_2d": ("spa_2d.cu", "cartographer_tpu/ops/spa_solver.py:160"),
     }
     line = []
     for name, (source, replaces) in sources.items():

@@ -14,6 +14,7 @@ import torch
 from cartographer_tpu.ops import spa_solver as jspa
 from cartographer_tpu.transform import rigid2
 from cartographer_tpu_torch.ops import spa_solver as tspa
+from cartographer_tpu_torch.testing import spa_cases_2d
 
 CPU = torch.device("cpu")
 
@@ -22,86 +23,9 @@ CPU = torch.device("cpu")
 
 
 def loop_graph(seed, num_nodes=24, nodes_per_submap=6, extras=None):
-    """A closed ring of nodes with submaps every few nodes: consistent
-    intra-submap and node-node constraints from the truth, two INTER loop
-    closures (without extras, one of them an outlier for the Huber loss),
-    and every free pose perturbed. `extras` "held" or "free" adds a
-    landmark and a fixed frame, perturbed, held constant or free. Returns
-    the JAX problem and extras and their numpy tables."""
-    rng = np.random.default_rng(seed)
-    ang = np.linspace(0.0, 2 * np.pi, num_nodes, endpoint=False)
-    nodes = np.stack([4 * np.cos(ang), 3 * np.sin(ang), ang + np.pi / 2], 1)
-    submaps = nodes[::nodes_per_submap].copy()
-    s, n = len(submaps), len(nodes)
-    cons = []
-    for ni in range(n):
-        si = ni // nodes_per_submap
-        for sj in {si, max(si - 1, 0)}:
-            cons.append((sj, ni, rigid2.relative(submaps[sj], nodes[ni]), 500.0, 1600.0, False))
-    z_close = rigid2.relative(submaps[0], nodes[-1])
-    cons.append((0, n - 1, z_close, 1.1e4, 1e5, True))
-    if not extras:
-        cons.append((s - 1, 2, z_close + [0.8, -0.5, 0.3], 1.1e4, 1e5, True))
-    nn = [
-        (i, i + 1, rigid2.relative(nodes[i], nodes[i + 1]), 1e5, 1e5)
-        for i in range(n - 1)
-    ]
-    start_s = submaps + rng.normal(0, [0.05, 0.05, 0.02], submaps.shape)
-    start_s[0] = submaps[0]
-    start_n = nodes + rng.normal(0, [0.05, 0.05, 0.02], nodes.shape)
-    pad = lambda k: max(8, 1 << (k - 1).bit_length())  # noqa: E731
-    C, K = pad(len(cons)), pad(len(nn))
-    t = dict(
-        submap_poses=np.zeros((pad(s), 3), np.float32),
-        node_poses=np.zeros((pad(n), 3), np.float32),
-        free_submap=np.zeros(pad(s), bool), free_node=np.zeros(pad(n), bool),
-        c_submap=np.zeros(C, np.int32), c_node=np.zeros(C, np.int32),
-        c_z=np.zeros((C, 3), np.float32), c_weight=np.ones((C, 2), np.float32),
-        c_huber=np.zeros(C, bool), c_mask=np.zeros(C, bool),
-        n_a=np.zeros(K, np.int32), n_b=np.zeros(K, np.int32),
-        n_z=np.zeros((K, 3), np.float32), n_weight=np.ones((K, 2), np.float32),
-        n_mask=np.zeros(K, bool),
-    )
-    t["submap_poses"][:s] = start_s
-    t["node_poses"][:n] = start_n
-    t["free_submap"][1:s] = True
-    t["free_node"][:n] = True
-    for i, (si, ni, z, wt, wr, h) in enumerate(cons):
-        t["c_submap"][i], t["c_node"][i], t["c_z"][i] = si, ni, z
-        t["c_weight"][i], t["c_huber"][i], t["c_mask"][i] = (wt, wr), h, True
-    for i, (a, b, z, wt, wr) in enumerate(nn):
-        t["n_a"][i], t["n_b"][i], t["n_z"][i] = a, b, z
-        t["n_weight"][i], t["n_mask"][i] = (wt, wr), True
-    ex = None
-    if extras:
-        landmark = np.array([0.5, 0.2, 0.1])
-        gps_origin = np.array([10.0, -3.0, 0.4])
-        o = [(3, 4, 0.25), (10, 11, 0.5), (17, 18, 0.75)]
-        ex = dict(
-            l_poses=np.zeros((2, 3), np.float32),
-            l_free=np.array([extras == "free", False]),
-            o_node_a=np.zeros(4, np.int32), o_node_b=np.zeros(4, np.int32),
-            o_factor=np.zeros(4, np.float32), o_landmark=np.zeros(4, np.int32),
-            o_z=np.zeros((4, 3), np.float32), o_weight=np.ones((4, 2), np.float32),
-            o_mask=np.zeros(4, bool),
-            f_pose=np.zeros((2, 3), np.float32),
-            f_free=np.array([extras == "free", False]),
-            g_node=np.zeros(8, np.int32), g_traj=np.zeros(8, np.int32),
-            g_z=np.zeros((8, 3), np.float32), g_weight=np.ones((8, 2), np.float32),
-            g_mask=np.zeros(8, bool),
-        )
-        ex["l_poses"][0] = landmark + [0.2, -0.1, 0.05]
-        for i, (a, b, f) in enumerate(o):
-            d = rigid2.normalize_angle(nodes[b, 2] - nodes[a, 2])
-            interp = nodes[a] + f * np.array([*(nodes[b, :2] - nodes[a, :2]), d])
-            ex["o_node_a"][i], ex["o_node_b"][i], ex["o_factor"][i] = a, b, f
-            ex["o_z"][i] = rigid2.relative(interp, landmark)
-            ex["o_weight"][i], ex["o_mask"][i] = (10.0, 20.0), True
-        ex["f_pose"][0] = gps_origin + [0.3, 0.2, -0.05]
-        for i, ni in enumerate(range(0, n, 4)):
-            ex["g_node"][i] = ni
-            ex["g_z"][i] = rigid2.relative(gps_origin, nodes[ni])
-            ex["g_weight"][i], ex["g_mask"][i] = (10.0, 100.0), True
+    """spa_cases_2d.loop_graph's problem as the JAX package's SpaProblem
+    and SpaExtras, and its numpy tables."""
+    t, ex = spa_cases_2d.loop_graph(seed, num_nodes, nodes_per_submap, extras)
     jp = jspa.SpaProblem(**{k: jnp.asarray(v) for k, v in t.items()})
     jx = None if ex is None else jspa.SpaExtras(**{k: jnp.asarray(v) for k, v in ex.items()})
     return jp, jx, t, ex
